@@ -1,0 +1,86 @@
+// K4: complete projective point add (Renes-Costello-Batina 2016, alg. 7,
+// a = 0) on limb planes, templated on the field degree (1: G1 over Fq,
+// 2: G2 over Fq2).
+//
+// Replaces: zklaim_tpu/ec/pallas_curve.py:_add_kernel, launched through
+// _padd_soa (point_add_planes) and _padd_halves_soa (point_add_halves).
+// The formula dataflow is _rcb_add (pallas_curve.py:143-164), so the
+// projective outputs are bit-identical to jaxcurve.point_add.
+//
+// Layout: a point batch is 3 * deg planes of (16, n) int32 limbs, G2 in
+// the order (x0, x1, y0, y1, z0, z1).  Each operand is a base pointer with
+// its own plane and limb (row) strides; elements are contiguous.  So the
+// halves mode of the MSM upsweep -- lo half + hi half of one plane set --
+// is one launch on two strided views, with no copy and no second kernel.
+//
+// What bounds it on the card: integer multiply throughput (12 Fq
+// multiplies for G1; 12 Fq2 = 36 Fq multiplies for G2 plus a Fq2 constant
+// multiply per 3b) and registers: a G2 add keeps the six input
+// coordinates (96 registers) plus temporaries live.  Design: one thread
+// per lane, everything in registers, the whole add one inlined program;
+// the bytes moved (6 x 64 B in, 3 x 64 B out per coordinate component)
+// are small beside the arithmetic.
+#include <cuda_runtime.h>
+
+#include "field.cuh"
+
+template <int DEG>
+__global__ void point_add_kernel(const int32_t* __restrict__ p, int64_t p_ps, int64_t p_ls,
+                                 const int32_t* __restrict__ q, int64_t q_ps, int64_t q_ls,
+                                 int32_t* __restrict__ out, int64_t o_ps, int64_t o_ls,
+                                 int64_t n) {
+  typedef CurveField<DEG> Fd;
+  typedef typename Fd::T T;
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const T x1 = Fd::load(p, p_ps, p_ls, 0, i);
+  const T y1 = Fd::load(p, p_ps, p_ls, 1, i);
+  const T z1 = Fd::load(p, p_ps, p_ls, 2, i);
+  const T x2 = Fd::load(q, q_ps, q_ls, 0, i);
+  const T y2 = Fd::load(q, q_ps, q_ls, 1, i);
+  const T z2 = Fd::load(q, q_ps, q_ls, 2, i);
+
+  const T t0 = Fd::mul(x1, x2);
+  const T t1 = Fd::mul(y1, y2);
+  const T t2 = Fd::mul(z1, z2);
+  const T m0 = Fd::mul(Fd::add(x1, y1), Fd::add(x2, y2));
+  const T m1 = Fd::mul(Fd::add(y1, z1), Fd::add(y2, z2));
+  const T m2 = Fd::mul(Fd::add(x1, z1), Fd::add(x2, z2));
+  const T t3 = Fd::sub(m0, Fd::add(t0, t1));
+  const T t4 = Fd::sub(m1, Fd::add(t1, t2));
+  const T t5 = Fd::sub(m2, Fd::add(t0, t2));
+  const T m = Fd::add(Fd::dbl(t0), t0);
+  const T nb = Fd::mul_b3(t2);
+  const T bv = Fd::mul_b3(t5);
+  const T wmn = Fd::sub(t1, nb);
+  const T wpn = Fd::add(t1, nb);
+  const T x3 = Fd::sub(Fd::mul(t3, wmn), Fd::mul(t4, bv));
+  const T y3 = Fd::add(Fd::mul(wpn, wmn), Fd::mul(m, bv));
+  const T z3 = Fd::add(Fd::mul(t4, wpn), Fd::mul(t3, m));
+
+  Fd::store(out, o_ps, o_ls, 0, i, x3);
+  Fd::store(out, o_ps, o_ls, 1, i, y3);
+  Fd::store(out, o_ps, o_ls, 2, i, z3);
+}
+
+extern "C" int zk_point_add(int deg,
+                            const void* p, long long p_ps, long long p_ls,
+                            const void* q, long long q_ps, long long q_ls,
+                            void* out, long long o_ps, long long o_ls,
+                            long long n, void* stream) {
+  if (n <= 0) return 0;
+  const int threads = 128;
+  const unsigned blocks = (unsigned)((n + threads - 1) / threads);
+  cudaStream_t s = (cudaStream_t)stream;
+  const int32_t* pp = (const int32_t*)p;
+  const int32_t* pq = (const int32_t*)q;
+  int32_t* po = (int32_t*)out;
+  if (deg == 1) {
+    point_add_kernel<1><<<blocks, threads, 0, s>>>(pp, p_ps, p_ls, pq, q_ps, q_ls, po, o_ps, o_ls, n);
+  } else if (deg == 2) {
+    point_add_kernel<2><<<blocks, threads, 0, s>>>(pp, p_ps, p_ls, pq, q_ps, q_ls, po, o_ps, o_ls, n);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,263 @@
+// BN254 Fq / Fr Montgomery arithmetic as CUDA device functions.
+//
+// Replaces: zklaim_tpu/ff/pallas_field.py (mont_mul, add_mod, sub_mod,
+// dbl_mod, mul_small), the in-kernel field library every Pallas kernel
+// inlines.  Every kernel of this directory includes this header.
+//
+// Representation: in device memory an element is 16 little-endian 16-bit
+// limbs held in int32 (the JAX package's layout, so arrays compare
+// directly); on load it is repacked to 8 x 32-bit limbs in registers and
+// unpacked on store.  Multiplication is CIOS Montgomery with
+// n' = -p^{-1} mod 2^32 and R = 2^256, followed by one conditional
+// subtraction.  With R = 2^256 the canonical result abR^{-1} mod p in
+// [0, p) is unique, so it matches the 16-bit SOS/REDC of
+// zklaim_tpu/ff/montgomery.py limb for limb.
+//
+// What bounds it on the card: integer multiply-add throughput (64 32x32
+// products per CIOS multiply) and registers (an Fe is 8 registers; a G2
+// point add keeps ~20 Fe live).  Design: 64-bit accumulators so the
+// compiler emits mad.lo/mad.hi carry chains, constants in __constant__
+// memory (every thread reads the same address: a broadcast), everything
+// force-inlined so each kernel is one straight-line register program.
+#pragma once
+
+#include <stdint.h>
+
+#define ZK_FQ 0
+#define ZK_FR 1
+
+struct Fe {
+  uint32_t v[8];
+};
+
+struct Fe2 {
+  Fe c0, c1;
+};
+
+// p for Fq (0) and Fr (1), 32-bit little-endian limbs
+static __constant__ uint32_t ZK_P[2][8] = {
+    {0xd87cfd47u, 0x3c208c16u, 0x6871ca8du, 0x97816a91u, 0x8181585du, 0xb85045b6u, 0xe131a029u, 0x30644e72u},
+    {0xf0000001u, 0x43e1f593u, 0x79b97091u, 0x2833e848u, 0x8181585du, 0xb85045b6u, 0xe131a029u, 0x30644e72u},
+};
+// n' = -p^{-1} mod 2^32
+static __constant__ uint32_t ZK_NP[2] = {0xe4866389u, 0xefffffffu};
+// 3 * b' for G2 (b' = 3 / xi), Montgomery form over Fq: (c0, c1)
+static __constant__ uint32_t ZK_B3_G2[2][8] = {
+    {0xb62e0d6au, 0x3baa927cu, 0xd1b664fdu, 0xd71e7c52u, 0xd95d4664u, 0x03873e63u, 0x082ab8f4u, 0x0e75b5b1u},
+    {0x7596fe35u, 0xaab7c666u, 0xbb6a27bau, 0x31d21a78u, 0x680401ffu, 0x85dd7297u, 0xdf39a7e9u, 0x03c52d6au},
+};
+
+// ---------------------------------------------------------------------------
+// load / store: limb k of element i at base[k * limb_stride + i * elem_stride]
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ Fe fe_load(const int32_t* base, int64_t limb_stride,
+                                      int64_t elem_stride, int64_t i) {
+  Fe r;
+  const int32_t* p = base + i * elem_stride;
+#pragma unroll
+  for (int j = 0; j < 8; j++) {
+    uint32_t lo = (uint32_t)p[(2 * j) * limb_stride];
+    uint32_t hi = (uint32_t)p[(2 * j + 1) * limb_stride];
+    r.v[j] = lo | (hi << 16);
+  }
+  return r;
+}
+
+__device__ __forceinline__ void fe_store(int32_t* base, int64_t limb_stride,
+                                         int64_t elem_stride, int64_t i,
+                                         const Fe& a) {
+  int32_t* p = base + i * elem_stride;
+#pragma unroll
+  for (int j = 0; j < 8; j++) {
+    p[(2 * j) * limb_stride] = (int32_t)(a.v[j] & 0xffffu);
+    p[(2 * j + 1) * limb_stride] = (int32_t)(a.v[j] >> 16);
+  }
+}
+
+__device__ __forceinline__ Fe fe_const(const uint32_t (&c)[8]) {
+  Fe r;
+#pragma unroll
+  for (int j = 0; j < 8; j++) r.v[j] = c[j];
+  return r;
+}
+
+// ---------------------------------------------------------------------------
+// modular add / sub (canonical in, canonical out)
+// ---------------------------------------------------------------------------
+
+// r = a - p if a >= p (a < 2^256 given with an extra carry bit `hi`)
+template <int F>
+__device__ __forceinline__ Fe fe_reduce_once(const Fe& a, uint32_t hi) {
+  Fe d;
+  uint64_t borrow = 0;
+#pragma unroll
+  for (int j = 0; j < 8; j++) {
+    uint64_t t = (uint64_t)a.v[j] - ZK_P[F][j] - borrow;
+    d.v[j] = (uint32_t)t;
+    borrow = (t >> 32) & 1u;
+  }
+  // a + hi*2^256 >= p  <=>  hi set or no borrow
+  return (hi || !borrow) ? d : a;
+}
+
+template <int F>
+__device__ __forceinline__ Fe fe_add(const Fe& a, const Fe& b) {
+  Fe s;
+  uint64_t c = 0;
+#pragma unroll
+  for (int j = 0; j < 8; j++) {
+    uint64_t t = (uint64_t)a.v[j] + b.v[j] + c;
+    s.v[j] = (uint32_t)t;
+    c = t >> 32;
+  }
+  return fe_reduce_once<F>(s, (uint32_t)c);
+}
+
+template <int F>
+__device__ __forceinline__ Fe fe_sub(const Fe& a, const Fe& b) {
+  Fe d;
+  uint64_t borrow = 0;
+#pragma unroll
+  for (int j = 0; j < 8; j++) {
+    uint64_t t = (uint64_t)a.v[j] - b.v[j] - borrow;
+    d.v[j] = (uint32_t)t;
+    borrow = (t >> 32) & 1u;
+  }
+  if (borrow) {
+    uint64_t c = 0;
+#pragma unroll
+    for (int j = 0; j < 8; j++) {
+      uint64_t t = (uint64_t)d.v[j] + ZK_P[F][j] + c;
+      d.v[j] = (uint32_t)t;
+      c = t >> 32;
+    }
+  }
+  return d;
+}
+
+template <int F>
+__device__ __forceinline__ Fe fe_dbl(const Fe& a) {
+  return fe_add<F>(a, a);
+}
+
+// ---------------------------------------------------------------------------
+// Montgomery multiply: CIOS, 8 x 32-bit limbs, R = 2^256
+// ---------------------------------------------------------------------------
+
+template <int F>
+__device__ __forceinline__ Fe fe_mul(const Fe& a, const Fe& b) {
+  uint32_t t[10];
+#pragma unroll
+  for (int j = 0; j < 10; j++) t[j] = 0;
+#pragma unroll
+  for (int i = 0; i < 8; i++) {
+    // t += a * b[i]
+    uint64_t c = 0;
+#pragma unroll
+    for (int j = 0; j < 8; j++) {
+      uint64_t s = (uint64_t)a.v[j] * b.v[i] + t[j] + c;
+      t[j] = (uint32_t)s;
+      c = s >> 32;
+    }
+    uint64_t s = (uint64_t)t[8] + c;
+    t[8] = (uint32_t)s;
+    t[9] = (uint32_t)(s >> 32);
+    // t = (t + m p) / 2^32 with m = t[0] n' mod 2^32
+    uint32_t m = t[0] * ZK_NP[F];
+    s = (uint64_t)m * ZK_P[F][0] + t[0];
+    c = s >> 32;
+#pragma unroll
+    for (int j = 1; j < 8; j++) {
+      s = (uint64_t)m * ZK_P[F][j] + t[j] + c;
+      t[j - 1] = (uint32_t)s;
+      c = s >> 32;
+    }
+    s = (uint64_t)t[8] + c;
+    t[7] = (uint32_t)s;
+    t[8] = t[9] + (uint32_t)(s >> 32);
+  }
+  Fe r;
+#pragma unroll
+  for (int j = 0; j < 8; j++) r.v[j] = t[j];
+  return fe_reduce_once<F>(r, t[8]);   // result < 2p
+}
+
+// ---------------------------------------------------------------------------
+// Fq2 = Fq[u] / (u^2 + 1)
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ Fe2 fe2_add(const Fe2& a, const Fe2& b) {
+  return {fe_add<ZK_FQ>(a.c0, b.c0), fe_add<ZK_FQ>(a.c1, b.c1)};
+}
+
+__device__ __forceinline__ Fe2 fe2_sub(const Fe2& a, const Fe2& b) {
+  return {fe_sub<ZK_FQ>(a.c0, b.c0), fe_sub<ZK_FQ>(a.c1, b.c1)};
+}
+
+__device__ __forceinline__ Fe2 fe2_dbl(const Fe2& a) { return fe2_add(a, a); }
+
+// Karatsuba: t0 = a0 b0, t1 = a1 b1, t2 = (a0 + a1)(b0 + b1);
+// c0 = t0 - t1, c1 = t2 - t0 - t1
+__device__ __forceinline__ Fe2 fe2_mul(const Fe2& a, const Fe2& b) {
+  Fe t0 = fe_mul<ZK_FQ>(a.c0, b.c0);
+  Fe t1 = fe_mul<ZK_FQ>(a.c1, b.c1);
+  Fe t2 = fe_mul<ZK_FQ>(fe_add<ZK_FQ>(a.c0, a.c1), fe_add<ZK_FQ>(b.c0, b.c1));
+  return {fe_sub<ZK_FQ>(t0, t1), fe_sub<ZK_FQ>(fe_sub<ZK_FQ>(t2, t0), t1)};
+}
+
+// ---------------------------------------------------------------------------
+// The two curve fields behind one interface (deg 1: G1 over Fq, deg 2: G2
+// over Fq2); mul_b3 multiplies by 3b of the curve (G1: b = 3, so 9x by
+// the addition chain 2(2(2x)) + x; G2: the Fq2 constant ZK_B3_G2).
+// ---------------------------------------------------------------------------
+
+template <int DEG>
+struct CurveField;
+
+template <>
+struct CurveField<1> {
+  typedef Fe T;
+  static __device__ __forceinline__ T add(const T& a, const T& b) { return fe_add<ZK_FQ>(a, b); }
+  static __device__ __forceinline__ T sub(const T& a, const T& b) { return fe_sub<ZK_FQ>(a, b); }
+  static __device__ __forceinline__ T dbl(const T& a) { return fe_dbl<ZK_FQ>(a); }
+  static __device__ __forceinline__ T mul(const T& a, const T& b) { return fe_mul<ZK_FQ>(a, b); }
+  static __device__ __forceinline__ T mul_b3(const T& x) {
+    T d = dbl(dbl(dbl(x)));
+    return add(d, x);
+  }
+  static __device__ __forceinline__ T load(const int32_t* base, int64_t plane_stride,
+                                           int64_t limb_stride, int coord, int64_t i) {
+    return fe_load(base + coord * plane_stride, limb_stride, 1, i);
+  }
+  static __device__ __forceinline__ void store(int32_t* base, int64_t plane_stride,
+                                               int64_t limb_stride, int coord, int64_t i,
+                                               const T& a) {
+    fe_store(base + coord * plane_stride, limb_stride, 1, i, a);
+  }
+};
+
+template <>
+struct CurveField<2> {
+  typedef Fe2 T;
+  static __device__ __forceinline__ T add(const T& a, const T& b) { return fe2_add(a, b); }
+  static __device__ __forceinline__ T sub(const T& a, const T& b) { return fe2_sub(a, b); }
+  static __device__ __forceinline__ T dbl(const T& a) { return fe2_dbl(a); }
+  static __device__ __forceinline__ T mul(const T& a, const T& b) { return fe2_mul(a, b); }
+  static __device__ __forceinline__ T mul_b3(const T& x) {
+    Fe2 b3 = {fe_const(ZK_B3_G2[0]), fe_const(ZK_B3_G2[1])};
+    return fe2_mul(x, b3);
+  }
+  // planes (x0, x1, y0, y1, z0, z1): coordinate `coord` is planes 2c, 2c+1
+  static __device__ __forceinline__ T load(const int32_t* base, int64_t plane_stride,
+                                           int64_t limb_stride, int coord, int64_t i) {
+    return {fe_load(base + (2 * coord) * plane_stride, limb_stride, 1, i),
+            fe_load(base + (2 * coord + 1) * plane_stride, limb_stride, 1, i)};
+  }
+  static __device__ __forceinline__ void store(int32_t* base, int64_t plane_stride,
+                                               int64_t limb_stride, int coord, int64_t i,
+                                               const T& a) {
+    fe_store(base + (2 * coord) * plane_stride, limb_stride, 1, i, a.c0);
+    fe_store(base + (2 * coord + 1) * plane_stride, limb_stride, 1, i, a.c1);
+  }
+};

@@ -1,0 +1,61 @@
+"""Complete point add on (3 deg, 16, n) limb planes: kernel K4.
+
+Counterpart of zklaim_tpu/ec/pallas_curve.py (point_add_planes,
+point_add_halves).  A point batch of width n is one int32 tensor of
+3 * deg planes, each (16, n) limbs; G2 planes are (x0, x1, y0, y1, z0, z1).
+
+On a CUDA tensor each call is one K4 launch; on a CPU tensor it runs
+`point_add_plain`, the plain version (curve.point_add).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import kernels as K
+from . import curve as C
+
+
+def point_add_plain(deg: int, p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Plain version of K4 on planes, on any device."""
+    f = C.ops_for(deg, plain=True)
+    r = C.point_add(f, C.planes_to_point(f, p), C.planes_to_point(f, q))
+    return C.point_to_planes(f, r)
+
+
+def _check(deg: int, t: torch.Tensor, what: str) -> None:
+    K.check_planes(t, what)
+    unit = t.dim() == 3 and (t.shape[2] <= 1 or t.stride(2) == 1)
+    if not unit or t.shape[0] != 3 * deg or t.shape[1] != 16:
+        raise ValueError(
+            f"{what}: expected ({3 * deg}, 16, n) planes with unit element stride, "
+            f"got shape {tuple(t.shape)} strides {t.stride()}"
+        )
+
+
+def point_add_planes(deg: int, p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """p + q lane by lane: two (3 deg, 16, n) plane sets -> a new one."""
+    if not p.is_cuda:
+        return point_add_plain(deg, p, q)
+    _check(deg, p, "point_add p")
+    _check(deg, q, "point_add q")
+    if p.shape != q.shape or p.device != q.device:
+        raise ValueError(f"point_add: operand mismatch {tuple(p.shape)} vs {tuple(q.shape)}")
+    n = p.shape[2]
+    out = torch.empty((3 * deg, 16, n), dtype=torch.int32, device=p.device)
+    if n:
+        K.launch("point_add", deg,
+                 p.data_ptr(), p.stride(0), p.stride(1),
+                 q.data_ptr(), q.stride(0), q.stride(1),
+                 out.data_ptr(), out.stride(0), out.stride(1), n)
+    return out
+
+
+def point_add_halves(deg: int, planes: torch.Tensor) -> torch.Tensor:
+    """Sum of the contiguous halves: (3 deg, 16, w) -> (3 deg, 16, w/2).
+
+    The halves are two strided views of `planes`: no copy on either device."""
+    w = planes.shape[-1]
+    if w % 2:
+        raise ValueError(f"point_add_halves: odd width {w}")
+    return point_add_planes(deg, planes[..., : w // 2], planes[..., w // 2 :])

@@ -1,0 +1,133 @@
+"""Build, load and launch the hand-written CUDA kernels (K1-K4).
+
+The sources in ../csrc are compiled with ONE nvcc call into a shared
+library with a plain C interface, at first use, and loaded with ctypes:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+         -Xcompiler -fPIC -Xptxas -v -o build/kernels/libzklaim_kernels-<key>.so
+         csrc/mont_mul.cu csrc/ntt.cu csrc/curve.cu
+
+<key> hashes the sources and flags, so an edited source rebuilds and a
+fresh checkout builds everything on its first launch.  Nothing here
+touches CUDA at import time: the CPU tests import every module.
+
+Every launch goes through `launch`, which passes PyTorch's current
+stream, raises if the C launcher returns a CUDA error, and counts the
+launch in LAUNCHES -- the count a run reads to show that its main path
+went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+SOURCES = ("mont_mul.cu", "ntt.cu", "curve.cu")
+HEADERS = ("field.cuh",)
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_longlong
+_I = ctypes.c_int
+# kernel name -> (C symbol, argtypes without the trailing stream)
+KERNELS = {
+    "mont_mul": ("zk_mont_mul", [_P, _I64, _I64, _P, _I64, _I64, _P, _I64, _I64, _I64, _I]),
+    "ntt_local": ("zk_ntt_local", [_P, _I64, _P, _I64, _I, _I]),
+    "ntt_stage": ("zk_ntt_stage", [_P, _I64, _P, _I64, _I]),
+    "point_add": ("zk_point_add", [_I, _P, _I64, _I64, _P, _I64, _I64, _P, _I64, _I64, _I64]),
+}
+
+LAUNCHES = dict.fromkeys(KERNELS, 0)
+BUILD_INFO: dict = {}
+_LIB = None
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _key() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in HEADERS + SOURCES:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def build() -> Path:
+    """Compile csrc/*.cu into build/kernels (once per source hash)."""
+    key = _key()
+    lib = BUILD_DIR / f"libzklaim_kernels-{key}.so"
+    log = BUILD_DIR / f"libzklaim_kernels-{key}.ptxas.txt"
+    if lib.exists():
+        BUILD_INFO.update(path=str(lib), seconds=0.0, cached=True,
+                          ptxas=log.read_text() if log.exists() else "")
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *(str(CSRC / s) for s in SOURCES)]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if res.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
+    log.write_text(res.stderr)
+    os.replace(tmp, lib)
+    BUILD_INFO.update(path=str(lib), seconds=seconds, cached=False, ptxas=res.stderr)
+    return lib
+
+
+def library() -> ctypes.CDLL:
+    global _LIB
+    if _LIB is None:
+        lib = ctypes.CDLL(str(build()))
+        for sym, argtypes in KERNELS.values():
+            fn = getattr(lib, sym)
+            fn.argtypes = argtypes + [_P]
+            fn.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB
+
+
+def launch(name: str, *args) -> None:
+    """Launch kernel `name` on the current stream; raise on a CUDA error."""
+    sym, _ = KERNELS[name]
+    stream = torch.cuda.current_stream().cuda_stream
+    rc = getattr(library(), sym)(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"kernel {name} launch failed: CUDA error {rc}")
+    LAUNCHES[name] += 1
+
+
+def check_planes(t: torch.Tensor, what: str) -> None:
+    """A kernel operand: an int32 tensor on a CUDA device."""
+    if not t.is_cuda:
+        raise ValueError(f"{what}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != torch.int32:
+        raise ValueError(f"{what}: expected int32 limbs, got {t.dtype}")

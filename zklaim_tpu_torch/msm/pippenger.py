@@ -1,0 +1,242 @@
+"""Multi-scalar multiplication (Pippenger) over BN254 G1/G2 in PyTorch.
+
+Counterpart of zklaim_tpu/msm/pippenger.py, same algorithm (see that
+module's docstring for the derivation):
+
+  1. W = 256/c signed c-bit digits per scalar; all (window, point) pairs
+     form ONE flat batch of M = W*N lanes, sorted once by the composite
+     key w*(B+1) + |digit| (stable sort, as lax.sort_key_val is), carrying
+     a pre-resolved row index into the table [P | -P | infinity];
+  2. one row gather from the packed (n, 48 deg) table, stored in
+     bit-reversed order so every upsweep level adds contiguous halves;
+  3. global prefixes at the W*(B+1) bucket tails from the upsweep levels;
+  4. per window, Abel summation B*F(t_B) - sum_{b<B} F(t_b) by a halving
+     tree over the bucket-major grid;
+  5. finish: (c-1) doublings of the window totals, then a Horner ladder.
+
+msm_many runs k sums as one flat batch (window w of sum i is window
+i*W + w) and one finish whose Horner ladder is k lanes wide: the finish's
+~W*c sequential adds are paid once for all k sums, not k times.
+
+Every point add, the finish's doublings included, goes through
+gpu_curve.point_add_planes / point_add_halves: kernel K4 on CUDA (a
+doubling is K4 with p = q, exact because the formula is complete), the
+plain version on CPU.  The finished point matches the JAX package's in
+affine form (the two finishes double by different complete formulas).
+The XLA-compile workaround msm_ladder is not ported: every N runs the
+flat pipeline.
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+from ..ec import curve as C
+from ..ec.gpu_curve import point_add_halves, point_add_planes
+from ..ff import montgomery as M
+from ..ff.limbs import LIMB_BITS, NUM_LIMBS
+from ..ff.montgomery import FQ
+
+# Max flat-batch lanes (k sums x W windows x points) per pass: the working
+# set is that many gathered rows plus about the same again in upsweep levels.
+MAX_LANES = {1: 1 << 21, 2: 1 << 20}
+
+
+def signed_digits(scalars: torch.Tensor, c: int) -> torch.Tensor:
+    """(N, 16) plain-domain int32 limbs -> (W, N) int32 signed digits.
+
+    Digits lie in [-2^(c-1), 2^(c-1)]; windows are LSB-first.  Requires
+    c | 16 and scalars < 2^254 (true for Fr), so the final carry is
+    absorbed by the top window.
+    """
+    if LIMB_BITS % c:
+        raise ValueError("window size must divide 16")
+    per_limb = LIMB_BITS // c
+    W = NUM_LIMBS * per_limb
+    mask = (1 << c) - 1
+    half = 1 << (c - 1)
+    out = []
+    carry = torch.zeros_like(scalars[:, 0])
+    for w in range(W):
+        d = ((scalars[:, w // per_limb] >> (c * (w % per_limb))) & mask) + carry
+        ge = d > half
+        carry = ge.to(d.dtype)
+        out.append(torch.where(ge, d - (1 << c), d))
+    return torch.stack(out).to(torch.int32)
+
+
+@lru_cache(maxsize=None)
+def _bitrev_np(k: int) -> np.ndarray:
+    idx = np.arange(1 << k, dtype=np.int64)
+    rev = np.zeros_like(idx)
+    for b in range(k):
+        rev |= ((idx >> b) & 1) << (k - 1 - b)
+    return rev
+
+
+def _revbits(idx: torch.Tensor, nb: int) -> torch.Tensor:
+    """Bit-reverse (width nb) each element of an int64 vector."""
+    r = torch.zeros_like(idx)
+    for b in range(nb):
+        r |= ((idx >> b) & 1) << (nb - 1 - b)
+    return r
+
+
+def _neg_rows(deg: int, rows: torch.Tensor) -> torch.Tensor:
+    """Packed rows of -P: the y coordinate negated."""
+    y = slice(16 * deg, 32 * deg)
+    out = rows.clone()
+    out[:, y] = M.neg_mod(FQ, rows[:, y].reshape(-1, NUM_LIMBS)).view(rows.shape[0], -1)
+    return out
+
+
+def infinity_rows(deg: int, n: int, device) -> torch.Tensor:
+    return C.planes_to_rows(C.infinity_planes(deg, n, device))
+
+
+def _window_partials(deg: int, tables: list, c: int):
+    """Flat-batch bucket phase: per-window (F(t_B), sum_{b<B} F(t_b)).
+
+    tables: k pairs (rows (n, 48 deg) packed projective points, scalars
+    (n, 16) plain limbs), one n for all, k * W * n a power of two.  The k
+    sums share one flat batch: window w of sum i is window i*W + w.
+    Returns (tot_w, head_w), each (3 deg, 16, k*W) planes.  Both are
+    group-linear in the points, so chunks may be summed before the finish.
+    """
+    k = len(tables)
+    n = tables[0][0].shape[0]
+    dev = tables[0][0].device
+    digits = torch.cat([signed_digits(s, c) for _, s in tables]).long()   # (k W, n)
+    KW = digits.shape[0]
+    W = KW // k
+    B = 1 << (c - 1)
+    Mw = KW * n
+    nb = Mw.bit_length() - 1
+    if (1 << nb) != Mw:
+        raise ValueError("flat batch k*W*N must be a power of two (pad N and k)")
+
+    # table [P_0 .. P_k-1 | -P_0 .. -P_k-1 | infinity]; the gather index
+    # pre-resolves the sum (row + i n), digit sign (+ k n), digit zero (2 k n)
+    table = torch.cat([r for r, _ in tables] + [_neg_rows(deg, r) for r, _ in tables]
+                      + [infinity_rows(deg, 1, dev)])
+    mag = digits.abs()
+    win = torch.arange(KW, device=dev)[:, None]
+    keys = (win * (B + 1) + mag).reshape(-1)
+    src = (win // W) * n + torch.arange(n, device=dev)
+    idx = torch.where(mag == 0, 2 * k * n,
+                      src + torch.where(digits < 0, k * n, 0)).reshape(-1)
+    skeys, perm = torch.sort(keys, stable=True)
+    sidx = idx[perm]
+
+    # bit-reversed storage: every upsweep level pairs contiguous halves
+    sidx_br = sidx[torch.from_numpy(_bitrev_np(nb)).to(dev)]
+    levels = [C.rows_to_planes(table.index_select(0, sidx_br))]
+    while levels[-1].shape[-1] > 1:
+        levels.append(point_add_halves(deg, levels[-1]))
+
+    # global prefixes at every bucket tail: t_{w,b} = last sorted index
+    # with key <= w*(B+1)+b; block j of level t lives at rev_{nb-t}(j)
+    bucket_keys = (win * (B + 1) + torch.arange(B + 1, device=dev)).reshape(-1)
+    m = torch.searchsorted(skeys, bucket_keys, right=True)   # prefix lengths
+    acc = C.infinity_planes(deg, m.shape[0], dev)
+    for t, lvl in enumerate(levels):
+        wt = max(1, Mw >> t)
+        nat = ((m >> t) - 1).clamp(0, wt - 1)
+        store = _revbits(nat, nb - t) if nb - t > 0 else nat
+        node = lvl.index_select(2, store)
+        bit = ((m >> t) & 1) == 1
+        acc = torch.where(bit, point_add_planes(deg, acc, node), acc)
+
+    # Abel summation per window (window-start corrections cancel):
+    # B*F(t_{w,B}) - sum_{b<B} F(t_{w,b})
+    grid = acc.view(3 * deg, NUM_LIMBS, KW, B + 1)
+    tot_w = grid[..., B].contiguous()
+    heads = grid[..., :B].transpose(2, 3).reshape(3 * deg, NUM_LIMBS, B * KW)
+    while heads.shape[-1] > KW:                               # b-major, window-minor
+        heads = point_add_halves(deg, heads)
+    return tot_w, heads
+
+
+def _dbl_k(deg: int, p: torch.Tensor, k: int) -> torch.Tensor:
+    """k doublings, each a complete add of p to itself."""
+    for _ in range(k):
+        p = point_add_planes(deg, p, p)
+    return p
+
+
+def _neg_planes(deg: int, planes: torch.Tensor) -> torch.Tensor:
+    out = planes.clone()
+    y = slice(deg, 2 * deg)
+    out[y] = M.neg_mod(FQ, planes[y].transpose(1, 2)).transpose(1, 2)
+    return out
+
+
+def _finish(deg: int, tot: torch.Tensor, head: torch.Tensor, c: int, k: int) -> torch.Tensor:
+    """(3 deg, 16, k W) partials of k sums -> (3 deg, 16, k): doublings,
+    then one Horner ladder that runs the k sums side by side."""
+    W = tot.shape[-1] // k
+    window_pts = point_add_planes(deg, _dbl_k(deg, tot, c - 1), _neg_planes(deg, head))
+    # (W, 3 deg, 16, k): window w of every sum, contiguous
+    per_window = window_pts.view(3 * deg, NUM_LIMBS, k, W).permute(3, 0, 1, 2).contiguous()
+    acc = C.infinity_planes(deg, k, tot.device)
+    for w in range(W - 1, -1, -1):
+        acc = point_add_planes(deg, _dbl_k(deg, acc, c), per_window[w])
+    return acc
+
+
+def _msm_chunked(deg: int, tables: list, c: int, chunk: int, k: int):
+    """Bucket phase per fixed-size chunk of the point axis, window
+    partials summed across chunks, ONE finish at the end."""
+    n = tables[0][0].shape[0]
+    tot = head = C.infinity_planes(deg, k * (256 // c), tables[0][0].device)
+    for i in range(0, n, chunk):
+        t, h = _window_partials(deg, [(r[i : i + chunk], s[i : i + chunk]) for r, s in tables], c)
+        tot = point_add_planes(deg, tot, t)
+        head = point_add_planes(deg, head, h)
+    return _finish(deg, tot, head, c, k)
+
+
+def msm_many(deg: int, pairs: list, c: int = 8, chunk: int | None = None) -> torch.Tensor:
+    """k sums sum_i scalars[i] * P_i at once -> (3 deg, 16, k) planes.
+
+    pairs: k (rows, scalars) with rows (N_j, 48 deg) packed projective
+    points (Montgomery form) and scalars (N_j, 16) plain-domain Fr limbs.
+    The k sums run as one flat batch and one finish.  Each point axis is
+    padded with infinity to a common power of two (the bit-reversed
+    upsweep needs k*W*N = 2^K), k to a power of two with empty sums, and
+    inputs above `chunk` points per sum (default MAX_LANES / (k W)) run
+    in chunks.
+    """
+    k = len(pairs)
+    for rows, scalars in pairs:
+        if scalars.shape != (rows.shape[0], NUM_LIMBS) or rows.shape[1] != 48 * deg:
+            raise ValueError(f"msm: rows {tuple(rows.shape)} with scalars {tuple(scalars.shape)}")
+    k2 = 1 << (k - 1).bit_length()
+    dev = pairs[0][0].device
+    n = max(r.shape[0] for r, _ in pairs)
+    chunk = chunk or max(1, MAX_LANES[deg] // (k2 * (256 // c)))
+    n2 = max(2, 1 << (n - 1).bit_length())
+    if n2 > chunk:
+        n2 = -(-n // chunk) * chunk
+    empty = torch.zeros((0, NUM_LIMBS), dtype=torch.int32, device=dev)
+    tables = []
+    for rows, scalars in list(pairs) + [(infinity_rows(deg, 0, dev), empty)] * (k2 - k):
+        pad = n2 - rows.shape[0]
+        if pad:
+            rows = torch.cat([rows, infinity_rows(deg, pad, dev)])
+            scalars = torch.cat([scalars, scalars.new_zeros((pad, NUM_LIMBS))])
+        tables.append((rows, scalars))
+    if n2 <= chunk:
+        out = _finish(deg, *_window_partials(deg, tables, c), c, k2)
+    else:
+        out = _msm_chunked(deg, tables, c, chunk, k2)
+    return out[..., :k]
+
+
+def msm_pow2(deg: int, rows: torch.Tensor, scalars: torch.Tensor, c: int = 8) -> torch.Tensor:
+    """sum_i scalars[i] * P_i -> (3 deg, 16, 1) projective planes (msm_many
+    with one sum)."""
+    return msm_many(deg, [(rows, scalars)], c)

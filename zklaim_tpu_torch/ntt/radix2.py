@@ -1,0 +1,100 @@
+"""Radix-2 NTT / iNTT over BN254 Fr in PyTorch.
+
+Counterpart of zklaim_tpu/ntt/radix2.py with the same host tables
+(omega, bit reversal, per-stage twiddles, coset powers, n^{-1},
+Z_H(g)^{-1}).  A transform takes AoS (n, 16) Montgomery limbs: a bit-
+reversal index_select, one transpose to (16, n) SoA planes, the butterfly
+stages of gpu_ntt (K2 + K3 on CUDA), one transpose back.  The n^{-1}
+scale and the coset shifts are mont_mul calls (K1 on CUDA).
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+from zklaim_tpu.ff.params import FR_GENERATOR, R, ROOT_OF_UNITY, TWO_ADICITY
+
+from ..ff import montgomery as M
+from ..ff.limbs import ints_to_limbs, to_tensor
+from ..ff.montgomery import FR
+from . import gpu_ntt
+
+
+def _mont(vals) -> np.ndarray:
+    return ints_to_limbs([v * (1 << 256) % R for v in vals])
+
+
+def _powers(x: int, count: int) -> list:
+    out = [1]
+    for _ in range(count - 1):
+        out.append(out[-1] * x % R)
+    return out
+
+
+class NTTDomain:
+    """Radix-2 evaluation domain of size n = 2^k over Fr, tables on `device`."""
+
+    def __init__(self, n: int, device="cpu"):
+        if n & (n - 1) or n < 2:
+            raise ValueError("domain size must be a power of two >= 2")
+        k = n.bit_length() - 1
+        if k > TWO_ADICITY:
+            raise ValueError("domain too large for Fr two-adicity")
+        self.n, self.k, self.device = n, k, torch.device(device)
+        self.omega = pow(ROOT_OF_UNITY, 1 << (TWO_ADICITY - k), R)
+        self.omega_inv = pow(self.omega, R - 2, R)
+        self.n_inv = pow(n, R - 2, R)
+        self.shift = FR_GENERATOR          # coset shift g
+        self.shift_inv = pow(self.shift, R - 2, R)
+
+        idx = np.arange(n, dtype=np.int64)
+        rev = np.zeros(n, dtype=np.int64)
+        for b in range(k):
+            rev |= ((idx >> b) & 1) << (k - 1 - b)
+        self.bitrev = torch.from_numpy(rev).to(self.device)
+
+        # flat SoA twiddle planes: stage s (m = 2^(s+1)) holds omega_m^j,
+        # j < m/2, at offset 2^s - 1
+        tw, tw_inv = [], []
+        for s in range(k):
+            m = 1 << (s + 1)
+            tw += _powers(pow(self.omega, n // m, R), m // 2)
+            tw_inv += _powers(pow(self.omega_inv, n // m, R), m // 2)
+        self.tw_flat = to_tensor(_mont(tw).T, self.device)          # (16, n-1)
+        self.tw_inv_flat = to_tensor(_mont(tw_inv).T, self.device)
+
+        self.shift_pows = to_tensor(_mont(_powers(self.shift, n)), self.device)
+        self.shift_pows_inv = to_tensor(_mont(_powers(self.shift_inv, n)), self.device)
+        self.n_inv_mont = to_tensor(_mont([self.n_inv])[0], self.device)
+        zg = (pow(self.shift, n, R) - 1) % R
+        self.z_coset_inv_mont = to_tensor(_mont([pow(zg, R - 2, R)])[0], self.device)
+
+    def _transform(self, x: torch.Tensor, tw_flat: torch.Tensor) -> torch.Tensor:
+        if x.shape != (self.n, 16):
+            raise ValueError(f"expected ({self.n}, 16) limbs, got {tuple(x.shape)}")
+        planes = x.index_select(0, self.bitrev).t().contiguous()
+        return gpu_ntt.ntt_stages(planes, tw_flat).t().contiguous()
+
+    def ntt(self, x: torch.Tensor) -> torch.Tensor:
+        """Coefficients -> evaluations on <omega>.  x: (n, 16) mont."""
+        return self._transform(x, self.tw_flat)
+
+    def intt(self, y: torch.Tensor) -> torch.Tensor:
+        """Evaluations on <omega> -> coefficients."""
+        return M.mont_mul(FR, self._transform(y, self.tw_inv_flat), self.n_inv_mont)
+
+    def coset_ntt(self, x: torch.Tensor) -> torch.Tensor:
+        """Coefficients -> evaluations on g<omega>."""
+        return self.ntt(M.mont_mul(FR, x, self.shift_pows))
+
+    def coset_intt(self, y: torch.Tensor) -> torch.Tensor:
+        """Evaluations on g<omega> -> coefficients."""
+        return M.mont_mul(FR, self.intt(y), self.shift_pows_inv)
+
+
+@lru_cache(maxsize=None)
+def get_domain(n: int, device: str = "cpu") -> NTTDomain:
+    return NTTDomain(n, device)

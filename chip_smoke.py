@@ -5,22 +5,34 @@
 
 1. Requires CUDA (exits non-zero without it) and prints the card's name
    and power limit.
-2. Builds the kernels K1-K4 from zklaim_tpu_torch/csrc with nvcc.
+2. Builds the kernels K1-K5 from zklaim_tpu_torch/csrc with nvcc.
 3. Holds each kernel against its plain PyTorch version on the card, at the
    main path's shapes, limb for limb (tolerance 0: integer arithmetic),
-   and times both with CUDA events.
-4. Drives the credential main path on ZKlaimCircuit(1): one trusted setup,
-   three proofs of different payloads, each verified by the host verifier;
-   an unsatisfied predicate must raise, a wrong public input must not
-   verify.  Launch counts are reset just before and read just after; every
-   kernel must have launched.
-5. Holds the card against the CPU on the small circuit: the same seed must
-   give the same proving key and proof on both devices.
-6. Prints the kernel table as one JSON line, then as the last line
+   times both with CUDA events and prints each case's bound: the least
+   time the card could take for the same work (kernels/cases.py).
+4. Drives the Groth16 path below the credential layer on ZKlaimCircuit(1)
+   (entry.run_main_path): one trusted setup, three proofs of different
+   payloads, each verified by the host verifier; an unsatisfied predicate
+   must raise, a wrong public input must not verify.
+5. Drives the credential path a user would call (entry.run_credential_path,
+   the three-role flow of `cli demo` through claims.api.Context) on
+   ZKlaimCircuit(1): issuer (setup, sign, serialize), three holders (each a
+   fresh context that imports the 10 MB proving key from bytes, checks
+   every table point on the card, proves and blinds), verifier; then every
+   way the flow must fail, each by its status code.  Prints the roles'
+   seconds, the byte sizes, the peak device memory and the launch counts.
+   For each of the two paths the launch counts are set to 0 just before and
+   read just after, and every kernel must have launched.
+6. Holds the card against the CPU on the small circuit: the same seed must
+   give the same proving key, verifying key and proof on both devices, as
+   tensors and as serde bytes, and pk_from_bytes(pk_to_bytes(pk)) must
+   return the same tables.
+7. Asserts that no jax module and no module of the JAX package was loaded.
+8. Prints the kernel table as one JSON line, then as the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}.
 
-Any failure raises, and the script exits non-zero.  The full record goes
-to build/chip_smoke.json.
+No failure is caught: any phase that fails raises, and the script exits
+non-zero.  The full record goes to build/chip_smoke.json.
 """
 
 from __future__ import annotations
@@ -39,7 +51,9 @@ KERNEL_ROWS = {
     "ntt_local": ("zklaim_tpu_torch/csrc/ntt.cu", "zklaim_tpu/ntt/pallas_ntt.py:100"),
     "ntt_stage": ("zklaim_tpu_torch/csrc/ntt.cu", "zklaim_tpu/ntt/pallas_ntt.py:152"),
     "point_add": ("zklaim_tpu_torch/csrc/curve.cu", "zklaim_tpu/ec/pallas_curve.py:222"),
+    "point_double": ("zklaim_tpu_torch/csrc/curve.cu", "zklaim_tpu/ec/pallas_curve.py:233"),
 }
+TABLES = ("a_g1", "b_g1", "b_g2", "h_g1", "l_g1")
 
 
 def _ms(fn, reps: int) -> float:
@@ -58,15 +72,23 @@ def _ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _require_all_launched(launches: dict, path: str) -> None:
+    missing = [k for k in KERNEL_ROWS if launches.get(k, 0) == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on {path}: {missing}")
+
+
 def main() -> None:
     import torch
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only on a GPU")
     from zklaim_tpu_torch import kernels as K
-    from zklaim_tpu_torch.entry import run_main_path, tiny_circuit
+    from zklaim_tpu_torch.claims import serde
+    from zklaim_tpu_torch.ec import curve as C
+    from zklaim_tpu_torch.entry import run_credential_path, run_main_path, tiny_circuit
     from zklaim_tpu_torch.groth16.api import prove, setup
-    from zklaim_tpu_torch.kernels.cases import kernel_cases, max_abs_err
+    from zklaim_tpu_torch.kernels.cases import bound_ms, kernel_cases, max_abs_err
 
     name = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
@@ -76,7 +98,7 @@ def main() -> None:
     ).stdout.strip().splitlines()[0]
     card = smi
     print(f"device: {name}, count {count}; torch {torch.__version__}, CUDA {torch.version.cuda}")
-    print(smi, flush=True)                      # name, power limit as nvidia-smi gives them
+    print(smi, flush=True)
     record = {"device": name, "count": count, "nvidia_smi": smi}
 
     # -- 2. build ----------------------------------------------------------
@@ -93,7 +115,8 @@ def main() -> None:
     # -- 3. kernel vs plain at main-path shapes ----------------------------
     dev = torch.device("cuda:0")
     rows = {k: {"name": k, "route": "cuda", "source": s, "replaces": r, "launches": 0,
-                "max_abs_err": 0, "ms": None, "plain_ms": None}
+                "max_abs_err": 0, "ms": None, "plain_ms": None, "bound_ms": None,
+                "bound_by": None, "library_ms": None}
             for k, (s, r) in KERNEL_ROWS.items()}
     record["cases"] = []
     for case in kernel_cases(dev, seed=SEED):
@@ -101,18 +124,20 @@ def main() -> None:
         torch.cuda.synchronize()
         err = max_abs_err(got, want)
         ms, plain_ms = _ms(case.run, 20), _ms(case.plain, 3)
+        bound, bound_by = bound_ms(case)
         print(f"[{card}] {case.label}: max_abs_err {err}, kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms", flush=True)
-        record["cases"].append({"label": case.label, "max_abs_err": err,
-                                "ms": ms, "plain_ms": plain_ms})
+              f"plain {plain_ms:.4f} ms, bound {bound:.4g} ms by {bound_by} "
+              f"({100 * bound / ms:.2f} % of the kernel's time)", flush=True)
+        record["cases"].append({"label": case.label, "max_abs_err": err, "ms": ms,
+                                "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by})
         if err != 0:
             raise AssertionError(f"{case.label}: kernel disagrees with plain version")
         row = rows[case.kernel]
         row["max_abs_err"] = max(row["max_abs_err"], err)
         if row["ms"] is None:           # the first case of a kernel is its headline
-            row["ms"], row["plain_ms"] = ms, plain_ms
+            row.update(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by)
 
-    # -- 4. the main path ----------------------------------------------------
+    # -- 4. the Groth16 path below the credential layer ----------------------
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     K.reset_launches()
@@ -122,7 +147,7 @@ def main() -> None:
     res["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
     res["launches"] = launches
     record["main_path"] = res
-    print(f"[{card}] main path {res['circuit']}: {res['num_vars']} vars, "
+    print(f"[{card}] run_main_path {res['circuit']}: {res['num_vars']} vars, "
           f"{res['num_constraints']} constraints, m = {res['m']}")
     print(f"[{card}] setup {res['setup_s']:.3f} s; prove cold {res['prove_s'][0]:.3f} s, "
           f"warm {', '.join(f'{t:.3f}' for t in res['prove_s'][1:])} s; "
@@ -135,30 +160,88 @@ def main() -> None:
         raise AssertionError("an unsatisfied predicate was proved")
     if not res["wrong_input_rejected"]:
         raise AssertionError("a proof verified against a wrong public input")
-    missing = [k for k, v in launches.items() if v == 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the main path: {missing}")
-    for k, v in launches.items():
-        rows[k]["launches"] = v
+    _require_all_launched(launches, "run_main_path")
+    for k in rows:
+        rows[k]["launches_run_main_path"] = launches[k]
 
-    # -- 5. card vs CPU on the small circuit ----------------------------------
+    # -- 5. the credential path through claims.api.Context -------------------
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    cred = run_credential_path(dev, num_payloads=1, requests=3, seed=SEED)
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    cred["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    cred["launches"] = launches
+    record["credential_path"] = cred
+    print(f"[{card}] run_credential_path ZKlaimCircuit(1), 3 holders; signing: {cred['signing']}")
+    print(f"[{card}] issuer {cred['issuer_s']:.3f} s (trusted_setup {cred['trusted_setup_s']:.3f} s); "
+          f"holder {', '.join(f'{t:.3f}' for t in cred['holder_s'])} s "
+          f"(proof_generate with pk import: cold {cred['proof_generate_s'][0]:.3f} s, "
+          f"warm {', '.join(f'{t:.3f}' for t in cred['proof_generate_s'][1:])} s; "
+          f"pk import alone {cred['pk_import_s']:.3f} s; proof_generate on an imported pk "
+          f"{cred['reprove_s']:.3f} s); "
+          f"verifier {', '.join(f'{t:.3f}' for t in cred['verifier_s'])} s")
+    print(f"[{card}] pk {cred['pk_bytes']} B, vk {cred['vk_bytes']} B, proof {cred['proof_bytes']} B; "
+          f"peak device memory {cred['peak_mem_bytes']} B")
+    print(f"[{card}] launches over the path {launches}; trusted_setup "
+          f"{cred['trusted_setup_launches']}; proof_generate with pk import "
+          f"{cred['proof_generate_launches'][-1]}; proof_generate on an imported pk "
+          f"{cred['reprove_launches']}; pk import {cred['pk_import_launches']}")
+    print(f"[{card}] status codes {cred['status']}", flush=True)
+    if not cred["statuses_ok"]:
+        raise AssertionError(f"status codes {cred['status']} != expected {cred['expected']}")
+    if cred["status"]["verify"] != [0, 0, 0]:
+        raise AssertionError(f"three verified proofs expected: {cred['status']['verify']}")
+    _require_all_launched(launches, "run_credential_path")
+    _require_all_launched(cred["reprove_launches"], "proof_generate")
+    for k in rows:
+        rows[k]["launches"] = launches[k]
+        rows[k]["launches_proof_generate"] = cred["reprove_launches"][k]
+        rows[k]["launches_trusted_setup"] = cred["trusted_setup_launches"][k]
+
+    # -- 6. card vs CPU on the small circuit, as tensors and as bytes ---------
     cs, witness = tiny_circuit()
     keys = {d: setup(cs, random.Random(SEED), d) for d in ("cuda", "cpu")}
-    for field in ("a_g1", "b_g1", "b_g2", "h_g1", "l_g1"):
+    for field in TABLES:
         if not torch.equal(getattr(keys["cuda"][0], field).cpu(), getattr(keys["cpu"][0], field)):
             raise AssertionError(f"setup on the card and on the CPU differ in pk.{field}")
     if keys["cuda"][1].ic != keys["cpu"][1].ic:
         raise AssertionError("setup on the card and on the CPU differ in vk.ic")
-    proofs = {}
-    for d, (pk, _, qap) in keys.items():
+    proofs, raw = {}, {}
+    for d, (pk, vk, qap) in keys.items():
         proofs[d] = prove(pk, qap, witness, random.Random(SEED))
+        raw[d] = (serde.pk_to_bytes(pk, 0), serde.vk_to_bytes(vk), serde.proof_to_bytes(proofs[d]))
     if proofs["cuda"] != proofs["cpu"]:
         raise AssertionError("proofs on the card and on the CPU differ")
-    print(f"[{card}] small circuit: pk, vk and proof identical on card and CPU", flush=True)
+    for what, on_card, on_cpu in zip(("pk", "vk", "proof"), raw["cuda"], raw["cpu"]):
+        if on_card != on_cpu:
+            raise AssertionError(f"{what} bytes on the card and on the CPU differ")
+    back, _ = serde.pk_from_bytes(raw["cuda"][0], dev)
+    again = serde.pk_to_bytes(back, 0)
+    if again != raw["cuda"][0]:
+        raise AssertionError("pk_to_bytes(pk_from_bytes(b)) != b on the card")
+    # an imported table is the affine form (Z = 1) of the setup's: equal as points
+    for field in TABLES:
+        deg = 2 if field == "b_g2" else 1
+        if (C.planes_to_host_points(deg, C.rows_to_planes(getattr(back, field)))
+                != C.planes_to_host_points(deg, C.rows_to_planes(getattr(keys["cuda"][0], field)))):
+            raise AssertionError(f"pk_from_bytes(pk_to_bytes(pk)) differs from pk in {field}")
+    print(f"[{card}] small circuit: pk, vk and proof identical on card and CPU, as tensors "
+          f"and as bytes ({len(raw['cuda'][0])} B pk); pk bytes round trip on the card",
+          flush=True)
+
+    # -- 7. nothing of jax or the JAX package was loaded -----------------------
+    foreign = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "zklaim_tpu"))
+    if foreign:
+        raise AssertionError(f"jax / JAX-package modules loaded: {foreign}")
+    print(f"[{card}] no jax and no zklaim_tpu module loaded")
 
     out = Path("build")
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(record, indent=1, default=str))
+    print(smi)                                   # name, power limit as nvidia-smi gives them
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))
 

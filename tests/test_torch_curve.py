@@ -2,7 +2,8 @@
 
 The plain point_add (K4's plain version) follows jaxcurve.point_add's
 dataflow, so projective outputs must match limb for limb.  Batch of 8
-lanes: random points, P + P, P + (-P), infinity on either side.
+lanes: random points, P + P, P + (-P), infinity on either side.  Host
+points are the port's own CurvePoints; jaxcurve reads them by attribute.
 """
 
 import random
@@ -14,11 +15,10 @@ import jax.numpy as jnp
 import torch
 
 from zklaim_tpu.ec import jaxcurve as JC
-from zklaim_tpu.ec.hostcurve import g1_generator, g2_generator
-from zklaim_tpu.ff.params import R
-
 from zklaim_tpu_torch.ec import curve as C
 from zklaim_tpu_torch.ec import gpu_curve as G
+from zklaim_tpu_torch.ec.hostcurve import g1_generator, g2_generator
+from zklaim_tpu_torch.ff.params import R
 
 # The suite runs as several worker processes on a few cores; torch's
 # intra-op threads would only contend with them.
@@ -44,10 +44,10 @@ def _jax(pt):
 @pytest.mark.parametrize("deg,jf,tf,gen", GROUPS, ids=["G1", "G2"])
 def test_point_add_matches_jaxcurve(deg, jf, tf, gen):
     hp, hq = _host_pairs(gen, 30 + deg)
-    p, q = C.host_points_to_proj(tf, hp), C.host_points_to_proj(tf, hq)
+    p, q = C.host_points_to_proj(tf, hp, "cpu"), C.host_points_to_proj(tf, hq, "cpu")
     # make the inputs genuinely projective: run them through one add with
     # infinity first (Z != 1 afterwards)
-    inf = C.point_infinity(tf, (8,))
+    inf = C.point_infinity(tf, (8,), "cpu")
     p, q = C.point_add(tf, p, inf), C.point_add(tf, inf, q)
     got = C.point_add(tf, p, q)
     want = JC.point_add(jf, _jax(p), _jax(q))
@@ -61,8 +61,8 @@ def test_plane_wrappers_on_cpu(deg, jf, tf, gen):
     """point_add_planes / point_add_halves on CPU tensors run the plain
     version; halves mode adds lanes i and i + w/2."""
     hp, hq = _host_pairs(gen, 40 + deg)
-    p = C.point_to_planes(tf, C.host_points_to_proj(tf, hp))
-    q = C.point_to_planes(tf, C.host_points_to_proj(tf, hq))
+    p = C.point_to_planes(tf, C.host_points_to_proj(tf, hp, "cpu"))
+    q = C.point_to_planes(tf, C.host_points_to_proj(tf, hq, "cpu"))
     s = G.point_add_planes(deg, p, q)
     want = JC.point_add(jf, _jax(C.planes_to_point(tf, p)), _jax(C.planes_to_point(tf, q)))
     for g, w in zip(C.planes_to_point(tf, s), want):
@@ -75,7 +75,7 @@ def test_plane_wrappers_on_cpu(deg, jf, tf, gen):
 @pytest.mark.parametrize("deg,jf,tf,gen", GROUPS, ids=["G1", "G2"])
 def test_host_conversions_roundtrip(deg, jf, tf, gen):
     hp, _ = _host_pairs(gen, 50 + deg)
-    proj = C.host_points_to_proj(tf, hp)
+    proj = C.host_points_to_proj(tf, hp, "cpu")
     for g, w in zip(proj, JC.host_points_to_proj(jf, hp)):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w).astype(np.int32))
     assert C.proj_to_host_points(tf, proj) == hp

@@ -19,13 +19,15 @@ import jax.numpy as jnp
 import torch
 
 from zklaim_tpu.ec import jaxcurve as JC
-from zklaim_tpu.ec.hostcurve import g1_generator, g2_generator
+from zklaim_tpu.ec.hostcurve import g1_generator as jax_g1_generator
 from zklaim_tpu.ff.limbs import ints_to_limbs
-from zklaim_tpu.ff.params import R
 from zklaim_tpu.msm import pippenger as JP
 from zklaim_tpu.msm.fixedbase import FixedBaseTable as JFixedBase
 
 from zklaim_tpu_torch.ec import curve as C
+from zklaim_tpu_torch.ec.hostcurve import g1_generator, g2_generator
+from zklaim_tpu_torch.ff.params import R
+from zklaim_tpu_torch.groth16.convert import host_point
 from zklaim_tpu_torch.msm import fixedbase as TF
 from zklaim_tpu_torch.msm import pippenger as TP
 
@@ -54,7 +56,7 @@ def _host_sum(pts, sc):
 
 def _rows(deg, pts):
     f = C.ops_for(deg)
-    return C.planes_to_rows(C.point_to_planes(f, C.host_points_to_proj(f, pts)))
+    return C.planes_to_rows(C.point_to_planes(f, C.host_points_to_proj(f, pts, "cpu")))
 
 
 def _scalars(sc):
@@ -76,7 +78,7 @@ def test_g1_msm_matches_jax_and_host(c):
     want = _host_sum(pts, sc)
     f = JC.FQ_OPS
     jout = JP.msm(f, JC.host_points_to_proj(f, pts), jnp.asarray(ints_to_limbs(sc)), c)
-    assert JC.proj_to_host_points(f, jax.tree.map(lambda a: a[None], jout))[0] == want
+    assert host_point(1, JC.proj_to_host_points(f, jax.tree.map(lambda a: a[None], jout))[0]) == want
     got = TP.msm_pow2(1, _rows(1, pts), _scalars(sc), c)
     assert got.shape == (3, 16, 1)
     assert C.planes_to_host_points(1, got)[0] == want
@@ -105,7 +107,7 @@ def test_fixed_base_matches_jax_projective():
     projective outputs."""
     rnd = random.Random(80)
     sc = [0, 1, R - 1] + [rnd.randrange(R) for _ in range(5)]
-    jt = JFixedBase(JC.FQ_OPS, g1_generator(), 8)
+    jt = JFixedBase(JC.FQ_OPS, jax_g1_generator(), 8)
     want = jt.mul(jnp.asarray(ints_to_limbs(sc)))
     got = TF.fixed_base_mul(1, _scalars(sc))
     for g, w in zip(C.planes_to_point(C.FQ_OPS, got), want):

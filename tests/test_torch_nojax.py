@@ -1,8 +1,11 @@
-"""The port imports and runs without jax.
+"""The port imports and runs without jax and without the JAX package.
 
-A subprocess blocks jax (sys.modules['jax'] = None), imports the port and
-runs its main path on the small circuit on the CPU: setup, one proof, its
-verification, the unsatisfied and wrong-input rejections.
+A subprocess blocks both -- a sys.meta_path finder that raises on `jax`,
+`jaxlib`, `zklaim_tpu` and anything below them -- imports the port and
+runs, on the CPU, its Groth16 main path on the small circuit (setup, one
+proof, its verification, the unsatisfied and wrong-input rejections) and
+the zero-payload credential flow through claims.api.Context.  The source
+scan rejects any import of either in the package and in chip_smoke.py.
 """
 
 import json
@@ -11,35 +14,81 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
+import zklaim_tpu_torch
+
 ROOT = Path(__file__).resolve().parent.parent
 
 _SCRIPT = """
-import json, sys
-sys.modules["jax"] = None
+import importlib.abc, json, sys
+
+BLOCKED = ("jax", "jaxlib", "zklaim_tpu")
+
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"{name} is blocked in this test")
+        return None
+
+
+sys.meta_path.insert(0, Block())
+try:
+    import zklaim_tpu.ff.params
+    raise SystemExit("the block does not hold")
+except ImportError:
+    pass
 import torch
 torch.set_num_threads(1)   # one of several test processes sharing the cores
 import zklaim_tpu_torch
-from zklaim_tpu_torch.groth16 import api
-from zklaim_tpu_torch.entry import run_main_path
+from zklaim_tpu_torch import cli
+from zklaim_tpu_torch.claims import api, serde, store
+from zklaim_tpu_torch.entry import run_credential_path, run_main_path
 res = run_main_path("cpu", requests=1, seed=5, tiny=True)
-res["jax_loaded"] = any(m == "jax" or m.startswith("jax.") for m, v in sys.modules.items() if v)
+cred = run_credential_path("cpu", num_payloads=0, requests=1, seed=5)
+res["credential_statuses_ok"] = cred["statuses_ok"]
+res["credential_verify"] = cred["status"]["verify"]
+res["foreign"] = sorted(m for m, v in sys.modules.items()
+                        if v is not None and m.split(".")[0] in BLOCKED)
 print(json.dumps(res))
 """
 
 
 def test_main_path_runs_with_jax_blocked():
     out = subprocess.run([sys.executable, "-c", _SCRIPT], cwd=ROOT, capture_output=True,
-                         text=True, timeout=600)
+                         text=True, timeout=900)
     assert out.returncode == 0, out.stderr[-4000:]
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["verified"] == [True]
     assert res["unsatisfied_rejected"] and res["wrong_input_rejected"]
     assert (res["num_vars"], res["m"]) == (281, 512)
-    assert not res["jax_loaded"]
+    assert res["credential_statuses_ok"] and res["credential_verify"] == [0]
+    assert res["foreign"] == []
 
 
 def test_no_jax_import_in_port_sources():
-    pat = re.compile(r"^\s*(import jax|from jax)", re.M)
+    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|zklaim_tpu)\b", re.M)
+    assert pat.search("from zklaim_tpu.ff import params") and pat.search("  import jax.numpy")
+    assert not pat.search("from zklaim_tpu_torch.ff import params")
     hits = [str(p) for p in (ROOT / "zklaim_tpu_torch").rglob("*.py") if pat.search(p.read_text())]
     assert hits == []
     assert not pat.search((ROOT / "chip_smoke.py").read_text())
+
+
+def test_default_device_raises_without_cuda():
+    """The card is the default and is never silently replaced by the CPU."""
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        zklaim_tpu_torch.default_device()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        zklaim_tpu_torch.resolve_device(None)
+    assert zklaim_tpu_torch.resolve_device("cpu") == torch.device("cpu")
+    from zklaim_tpu_torch.entry import run_credential_path, run_main_path
+
+    for entry_point in (run_main_path, run_credential_path):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            entry_point()

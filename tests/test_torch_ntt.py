@@ -31,7 +31,7 @@ def _mont(vals):
 
 @pytest.fixture(scope="module")
 def dom64():
-    return JR.NTTDomain(64), NTTDomain(64)
+    return JR.NTTDomain(64), NTTDomain(64, "cpu")
 
 
 @pytest.mark.parametrize("op", ["ntt", "intt", "coset_ntt", "coset_intt"])
@@ -63,7 +63,7 @@ def test_local_global_split_matches_dft(inverse):
     32) both run; the result equals the single-tile run and a DFT in
     Python ints."""
     n = 256
-    dom = NTTDomain(n)
+    dom = NTTDomain(n, "cpu")
     vals = [random.Random(10).randrange(R) for _ in range(n)]
     planes = _mont(vals).index_select(0, dom.bitrev).t().contiguous()
     tw = dom.tw_inv_flat if inverse else dom.tw_flat
@@ -79,7 +79,7 @@ def test_local_global_split_matches_dft(inverse):
 
 def test_roundtrips_at_512():
     """The tiny circuit's domain size."""
-    dom = NTTDomain(512)
+    dom = NTTDomain(512, "cpu")
     x = _mont([random.Random(11).randrange(R) for _ in range(512)])
     assert torch.equal(dom.intt(dom.ntt(x)), x)
     assert torch.equal(dom.coset_intt(dom.coset_ntt(x)), x)

@@ -33,14 +33,14 @@ data_k variables; reference :684-688 binds them with explicit rows).
 
 Jax-free copy of zklaim_tpu/claims/circuit.py: the code is identical and only the
 imports differ (..ff.limbs is this package's numpy/torch limb module,
-..ff.params is zklaim_tpu.ff.params), so the port imports without jax.
+..ff.params is this package's copy of the constants), so the port imports without jax.
 """
 
 from __future__ import annotations
 
 import hashlib
 
-from zklaim_tpu.ff.params import FR_CAPACITY
+from ..ff.params import FR_CAPACITY
 from ..gadgets import bits as B
 from ..gadgets.compare import comparison
 from ..gadgets.sha256 import sha256_48byte_block_bits, sha256_compression

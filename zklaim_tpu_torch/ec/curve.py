@@ -4,8 +4,10 @@ Counterpart of zklaim_tpu/ec/jaxcurve.py.  Points are tuples (X, Y, Z) of
 Montgomery-domain int32 limb tensors in homogeneous projective
 coordinates: G1 coordinates (..., 16) over Fq, G2 coordinates
 (..., 2, 16) over Fq2.  Infinity is (0, 1, 0).  The group law is the
-complete Renes-Costello-Batina add (a = 0) with the same dataflow as
-jaxcurve.point_add, so projective outputs match it limb for limb.
+complete Renes-Costello-Batina add and doubling (a = 0) with the same
+dataflow as jaxcurve.point_add / point_double, so projective outputs match
+them limb for limb.  Batch projective <-> affine conversion (a batched
+Fermat inversion of Z) serves the byte formats of claims.serde.
 
 Independent products are stacked into one mont_mul call, as in jaxcurve:
 on the CPU that keeps the number of small torch ops down.  The plane
@@ -19,13 +21,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from zklaim_tpu.ec.hostcurve import B_G1, B_G2, CurvePoint
-from zklaim_tpu.ff.hostfield import Fq, Fq2
-from zklaim_tpu.ff.params import Q
-
 from ..ff import montgomery as M
+from ..ff.hostfield import Fq, Fq2
 from ..ff.limbs import NUM_LIMBS, to_tensor
 from ..ff.montgomery import FQ
+from ..ff.params import Q
+from .hostcurve import B_G1, B_G2, CurvePoint
 
 
 def _stack_pairs(pairs):
@@ -83,6 +84,19 @@ class FqOps:
         return self.add(d, x)
 
     @staticmethod
+    def inv(a):
+        """Batched Fermat inversion; 0 -> 0."""
+        return M.mont_inv(FQ, a)
+
+    @staticmethod
+    def is_zero(a):
+        return (a == 0).all(-1)
+
+    @staticmethod
+    def select(mask, a, b):
+        return torch.where(mask[..., None], a, b)
+
+    @staticmethod
     def zeros(batch_shape, device):
         return torch.zeros(tuple(batch_shape) + (NUM_LIMBS,), dtype=torch.int32, device=device)
 
@@ -132,6 +146,24 @@ class Fq2Ops(FqOps):
         return self.mul(x, to_tensor(self._B3, x.device).expand(x.shape))
 
     @staticmethod
+    def inv(a):
+        """1/a = conj(a) / norm(a), one Fermat inversion in Fq; 0 -> 0."""
+        a0, a1 = a[..., 0, :], a[..., 1, :]
+        both = torch.stack([a0, a1])
+        sq = M.mont_mul(FQ, both, both)
+        ninv = M.mont_inv(FQ, M.add_mod(FQ, sq[0], sq[1]))
+        c = M.mont_mul(FQ, both, torch.stack([ninv, ninv]))
+        return torch.stack([c[0], M.neg_mod(FQ, c[1])], dim=-2)
+
+    @staticmethod
+    def is_zero(a):
+        return (a == 0).all(-1).all(-1)
+
+    @staticmethod
+    def select(mask, a, b):
+        return torch.where(mask[..., None, None], a, b)
+
+    @staticmethod
     def zeros(batch_shape, device):
         return torch.zeros(tuple(batch_shape) + (2, NUM_LIMBS), dtype=torch.int32, device=device)
 
@@ -157,7 +189,7 @@ def ops_for(deg: int, plain: bool = False):
 # ---------------------------------------------------------------------------
 
 
-def point_infinity(f, batch_shape=(), device="cpu"):
+def point_infinity(f, batch_shape, device):
     return (f.zeros(batch_shape, device), f.ones(batch_shape, device), f.zeros(batch_shape, device))
 
 
@@ -168,8 +200,7 @@ def point_neg(f, p):
 
 def point_select(f, mask, p, q):
     """mask True -> p, False -> q (batched; mask has the batch shape)."""
-    m = mask.view(mask.shape + (1,) * f.deg)
-    return tuple(torch.where(m, a, b) for a, b in zip(p, q))
+    return tuple(f.select(mask, a, b) for a, b in zip(p, q))
 
 
 def point_add(f, p, q):
@@ -198,6 +229,20 @@ def point_add(f, p, q):
     x3 = f.sub(p0, p1_)
     y3, z3 = f.add_many([(p2_, p3_), (p4_, p5_)])
     return (x3, y3, z3)
+
+
+def point_double(f, p):
+    """Complete projective doubling (RCB16 alg. 9): valid for ALL inputs.
+
+    Plain version of kernel K5; the same dataflow as jaxcurve.point_double."""
+    x, y, z = p
+    t0, t1, t2, t3 = f.mul_many([(y, y), (y, z), (z, z), (x, y)])
+    z8 = f.dbl(f.dbl(f.dbl(t0)))           # 8 Y^2
+    n = f.mul_b3(t2)                       # 3b Z^2
+    n3 = f.add(f.dbl(n), n)
+    t0m, t0p = f.sub(t0, n3), f.add(t0, n)
+    q0, q1, q2, q3 = f.mul_many([(t1, z8), (n, z8), (t0m, t0p), (t0m, t3)])
+    return (f.dbl(q3), f.add(q2, q1), q0)
 
 
 # ---------------------------------------------------------------------------
@@ -234,6 +279,17 @@ def planes_to_rows(planes: torch.Tensor) -> torch.Tensor:
     return planes.reshape(k * NUM_LIMBS, n).t().contiguous()
 
 
+def point_to_rows(pt) -> torch.Tensor:
+    """(X, Y, Z) with batch (n,) -> packed rows (n, 48 deg)."""
+    return torch.cat([c.flatten(1) for c in pt], dim=1)
+
+
+def rows_to_point(deg: int, rows: torch.Tensor):
+    """Packed rows (n, 48 deg) -> (X, Y, Z) with batch (n,)."""
+    shape = (rows.shape[0], NUM_LIMBS) if deg == 1 else (rows.shape[0], 2, NUM_LIMBS)
+    return tuple(c.reshape(shape) for c in rows.split(NUM_LIMBS * deg, dim=1))
+
+
 def infinity_planes(deg: int, width: int, device) -> torch.Tensor:
     f = ops_for(deg)
     return point_to_planes(f, point_infinity(f, (1,), device)).expand(-1, -1, width).contiguous()
@@ -244,7 +300,7 @@ def infinity_planes(deg: int, width: int, device) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def host_points_to_proj(f, points, device="cpu"):
+def host_points_to_proj(f, points, device):
     """List of host CurvePoints (affine or inf) -> batched projective tensors."""
     n = len(points)
     xs, ys, zs = [], [], []
@@ -298,3 +354,29 @@ def proj_to_host_points(f, proj):
 def planes_to_host_points(deg: int, planes: torch.Tensor):
     f = ops_for(deg)
     return proj_to_host_points(f, planes_to_point(f, planes))
+
+
+# ---------------------------------------------------------------------------
+# Batch projective <-> affine on the device (the byte formats' two ends)
+# ---------------------------------------------------------------------------
+
+
+def proj_to_affine_limbs(f, proj):
+    """Projective mont points -> (x, y, inf) plain-domain limbs.
+
+    Batched Fermat inversion of Z; infinity rows decode to x = y = 0."""
+    x, y, z = proj
+    zinv = f.inv(z)                      # 0 -> 0 handles infinity
+    xa, ya = f.mul_many([(x, zinv), (y, zinv)])
+    return M.from_mont(FQ, xa), M.from_mont(FQ, ya), f.is_zero(z)
+
+
+def affine_limbs_to_proj(f, x_plain, y_plain, inf_mask):
+    """Inverse of proj_to_affine_limbs: plain affine limbs -> mont projective."""
+    xm = M.to_mont(FQ, x_plain)
+    ym = M.to_mont(FQ, y_plain)
+    batch, dev = inf_mask.shape, xm.device
+    xm = f.select(inf_mask, f.zeros(batch, dev), xm)
+    ym = f.select(inf_mask, f.ones(batch, dev), ym)
+    zm = f.select(inf_mask, f.zeros(batch, dev), f.ones(batch, dev))
+    return (xm, ym, zm)

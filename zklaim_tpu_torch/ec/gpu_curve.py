@@ -1,11 +1,15 @@
-"""Complete point add on (3 deg, 16, n) limb planes: kernel K4.
+"""Complete point add and doubling on (3 deg, 16, n) limb planes:
+kernels K4 and K5.
 
 Counterpart of zklaim_tpu/ec/pallas_curve.py (point_add_planes,
-point_add_halves).  A point batch of width n is one int32 tensor of
-3 * deg planes, each (16, n) limbs; G2 planes are (x0, x1, y0, y1, z0, z1).
+point_add_halves, point_double).  A point batch of width n is one int32
+tensor of 3 * deg planes, each (16, n) limbs; G2 planes are
+(x0, x1, y0, y1, z0, z1).
 
-On a CUDA tensor each call is one K4 launch; on a CPU tensor it runs
-`point_add_plain`, the plain version (curve.point_add).
+On a CUDA tensor each call is one K4 or K5 launch, and a build or launch
+that fails raises; on a CPU tensor it runs `point_add_plain` /
+`point_double_plain`, the plain versions (curve.point_add,
+curve.point_double).
 """
 
 from __future__ import annotations
@@ -59,3 +63,23 @@ def point_add_halves(deg: int, planes: torch.Tensor) -> torch.Tensor:
     if w % 2:
         raise ValueError(f"point_add_halves: odd width {w}")
     return point_add_planes(deg, planes[..., : w // 2], planes[..., w // 2 :])
+
+
+def point_double_plain(deg: int, p: torch.Tensor) -> torch.Tensor:
+    """Plain version of K5 on planes, on any device."""
+    f = C.ops_for(deg, plain=True)
+    return C.point_to_planes(f, C.point_double(f, C.planes_to_point(f, p)))
+
+
+def point_double_planes(deg: int, p: torch.Tensor) -> torch.Tensor:
+    """2p lane by lane: (3 deg, 16, n) planes -> a new plane set."""
+    if not p.is_cuda:
+        return point_double_plain(deg, p)
+    _check(deg, p, "point_double p")
+    n = p.shape[2]
+    out = torch.empty((3 * deg, 16, n), dtype=torch.int32, device=p.device)
+    if n:
+        K.launch("point_double", deg,
+                 p.data_ptr(), p.stride(0), p.stride(1),
+                 out.data_ptr(), out.stride(0), out.stride(1), n)
+    return out

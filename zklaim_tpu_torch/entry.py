@@ -1,7 +1,15 @@
-"""The credential main path, end to end: issuer setup -> holder proofs ->
+"""The credential main paths, end to end: issuer setup -> holder proofs ->
 verifier checks.
 
-run_main_path(device, num_payloads, requests, seed) builds the predicate
+run_credential_path(device, num_payloads, requests, seed) is the three-role
+flow of `cli demo` through claims.api.Context -- keys, proofs and contexts
+cross between the roles as bytes (claims.serde and the context wire
+format) -- with a timer around each role, `requests` holders with different
+attributes and predicates, and every way the flow must fail, each by its
+status code and never by an exception.
+
+run_main_path(device, num_payloads, requests, seed) drives groth16.api
+directly, below the credential layer: it builds the predicate
 circuit (ZKlaimCircuit(num_payloads), or the small credential-shaped
 `tiny_circuit` with tiny=True), runs the trusted setup once, then for each
 request builds a payload the way claims.api.Payload does (set_attr per
@@ -10,6 +18,9 @@ ops' byte positions), proves and verifies.  It also checks the two ways a
 request must fail: a predicate the attributes do not satisfy makes
 `prove` raise ValueError, and a proof checked against a wrong public
 input does not verify.  All randomness comes from random.Random(seed).
+
+Both run on the card unless the caller passes a device (the tests pass
+"cpu").
 """
 
 from __future__ import annotations
@@ -20,6 +31,8 @@ import time
 
 import torch
 
+from . import kernels as K
+from . import resolve_device
 from .claims.circuit import (
     OP_EQ, OP_GREATER, OP_GREATER_EQ, OP_LESS, OP_LESS_EQ, OP_NOOP, OP_NOT_EQ,
     ZKlaimCircuit, public_inputs_for,
@@ -120,10 +133,11 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def run_main_path(device="cpu", num_payloads: int = 1, requests: int = 3, seed: int = 0,
+def run_main_path(device=None, num_payloads: int = 1, requests: int = 3, seed: int = 0,
                   tiny: bool = False) -> dict:
     """Setup once, then `requests` proofs, each verified; plus one
     unsatisfied request and one wrong-public-input verification."""
+    device = resolve_device(device)
     rng = random.Random(seed)
     t0 = time.perf_counter()
     work = _TinyWorkload() if tiny else _CredentialWorkload(num_payloads)
@@ -165,3 +179,181 @@ def run_main_path(device="cpu", num_payloads: int = 1, requests: int = 3, seed: 
         wrong = [(primary[0] + 1) % (1 << 253)] + list(primary[1:])
         out["wrong_input_rejected"] = not verify(vk, wrong, proof)
     return out
+
+
+# ---------------------------------------------------------------------------
+# The credential path through claims.api.Context
+# ---------------------------------------------------------------------------
+
+
+def _claim(rng, attrs):
+    """(data_ref, data_op) of a predicate set the attributes satisfy."""
+    from .claims.api import OP_TO_POSITION
+
+    zk_op = {pos: op for op, pos in OP_TO_POSITION.items()}
+    ops = [rng.choice(_OPS) for _ in attrs]
+    refs = [_reference_for(rng, a, op) for a, op in zip(attrs, ops)]
+    return refs, [zk_op[op] for op in ops]
+
+
+def _launches_since(before: dict) -> dict:
+    """Kernel launches since the snapshot `before` (all 0 on the CPU)."""
+    return {k: v - before[k] for k, v in K.LAUNCHES.items()}
+
+
+def _off_curve_pk(pk_bytes: bytes) -> bytes:
+    """pk bytes with the first point of the A table moved off the curve
+    (y + 1, still canonical: the range check passes, the curve check fails)."""
+    o = 20 + 3 * 64 + 2 * 128 + 32
+    y = int.from_bytes(pk_bytes[o : o + 32], "big")
+    return pk_bytes[:o] + (y + 1).to_bytes(32, "big") + pk_bytes[o + 32 :]
+
+
+def run_credential_path(device=None, num_payloads: int = 1, requests: int = 3,
+                        seed: int = 0) -> dict:
+    """Issuer -> `requests` holders -> verifier through claims.api.Context,
+    then the failures.  Returns times, byte sizes and every status code; the
+    caller asserts them (`statuses_ok` says whether all are as expected)."""
+    import copy
+
+    from .claims import serde, signing
+    from .utils import native
+    from .claims.api import (
+        ZKLAIM_ERROR, ZKLAIM_INVALID_PROOF, ZKLAIM_INVALID_SIGNATURE, ZKLAIM_OK,
+        Context, Payload, ZkOp,
+    )
+
+    device = resolve_device(device)
+    rng = random.Random(seed)
+    out = {"device": str(device), "num_payloads": num_payloads,
+           "signing": "native" if native.available() else "python"}   # same bytes either way
+    status = {}
+
+    # ===== issuer: one trusted setup, one signed credential per holder =====
+    t0 = time.perf_counter()
+    priv = signing.keygen(rng)
+    attrs, wires = [], []
+    pk_bytes = vk_bytes = b""
+    for i in range(requests):
+        ctx = Context(device)
+        mine = []
+        for _ in range(num_payloads):
+            pl = Payload()
+            values = [rng.randrange(1 << 20, 1 << 40) for _ in range(5)]
+            for pos, a in enumerate(values):
+                pl.set_attr(a, pos)
+            pl.data_ref, pl.data_op = _claim(rng, values)
+            ctx.add_payload(pl)
+            mine.append(values)
+        ctx.hash_payloads(rng)
+        if i == 0:
+            t1, before = time.perf_counter(), dict(K.LAUNCHES)
+            status["trusted_setup"] = ctx.trusted_setup(rng)
+            _sync(device)
+            out["trusted_setup_s"] = time.perf_counter() - t1
+            out["trusted_setup_launches"] = _launches_since(before)
+            pk_bytes, vk_bytes = ctx.pk, ctx.vk
+        else:
+            ctx.vk = vk_bytes                    # one setup per circuit, not per credential
+        status.setdefault("sign", []).append(ctx.sign(priv, rng))
+        wires.append(ctx.serialize())
+        attrs.append(mine)
+    out["issuer_s"] = time.perf_counter() - t0
+    out["pk_bytes"], out["vk_bytes"] = len(pk_bytes), len(vk_bytes)
+
+    # ===== holders: a fresh context each, the pk handed over out of band =====
+    out["holder_s"], out["proof_generate_s"], out["proof_generate_launches"] = [], [], []
+    status["holder_deserialize"], status["pre_proof_verify"] = [], []
+    status["proof_generate"] = []
+    proven, holder = [], None
+    for i in range(requests):
+        t0 = time.perf_counter()
+        holder, st = Context.deserialize(wires[i], device)
+        status["holder_deserialize"].append(st)
+        holder.pk = pk_bytes
+        status["pre_proof_verify"].append(holder.verify())
+        for pl, values in zip(holder.payloads, attrs[i]):      # tailor the claim
+            pl.data_ref, pl.data_op = _claim(rng, values)
+        t1, before = time.perf_counter(), dict(K.LAUNCHES)
+        status["proof_generate"].append(holder.proof_generate(rng))
+        _sync(device)
+        out["proof_generate_s"].append(time.perf_counter() - t1)
+        out["proof_generate_launches"].append(_launches_since(before))
+        if i == requests - 1:
+            # the same holder proves a second claim: its context has the
+            # imported pk, so this is the prover alone
+            keep = copy.deepcopy(holder)
+            for pl, values in zip(keep.payloads, attrs[i]):
+                pl.data_ref, pl.data_op = _claim(rng, values)
+            t1, before = time.perf_counter(), dict(K.LAUNCHES)
+            status["reprove"] = keep.proof_generate(rng)
+            _sync(device)
+            out["reprove_s"] = time.perf_counter() - t1
+            out["reprove_launches"] = _launches_since(before)
+        holder.clear_pres()
+        proven.append(holder.serialize())
+        out["holder_s"].append(time.perf_counter() - t0)
+    out["proof_bytes"] = len(holder.proof) if holder is not None else 0
+
+    t0, before = time.perf_counter(), dict(K.LAUNCHES)
+    serde.pk_from_bytes(pk_bytes, device)
+    _sync(device)
+    out["pk_import_s"] = time.perf_counter() - t0
+    out["pk_import_launches"] = _launches_since(before)
+
+    # ===== verifier =====
+    out["verifier_s"] = []
+    status["verifier_deserialize"], status["verify"] = [], []
+    for wire in proven:
+        t0 = time.perf_counter()
+        ctx, st = Context.deserialize(wire, device)
+        status["verifier_deserialize"].append(st)
+        status["verify"].append(ctx.verify())
+        out["verifier_s"].append(time.perf_counter() - t0)
+
+    # ===== the ways it must fail =====
+    expect = {
+        "trusted_setup": ZKLAIM_OK, "sign": [ZKLAIM_OK] * requests,
+        "holder_deserialize": [ZKLAIM_OK] * requests,
+        "pre_proof_verify": [ZKLAIM_INVALID_PROOF] * requests,
+        "proof_generate": [ZKLAIM_OK] * requests,
+        "verifier_deserialize": [ZKLAIM_OK] * requests, "verify": [ZKLAIM_OK] * requests,
+    }
+    if requests:
+        expect["reprove"] = ZKLAIM_OK
+        flipped = bytearray(proven[-1])
+        flipped[-100] ^= 1                                # inside the proof's C point
+        ctx, _ = Context.deserialize(bytes(flipped), device)
+        status["flipped_proof_byte"] = ctx.verify()
+        expect["flipped_proof_byte"] = ZKLAIM_INVALID_PROOF
+
+        bad = Context.deserialize(wires[0], device)[0]
+        bad.pk = _off_curve_pk(pk_bytes)
+        status["off_curve_pk"] = bad.proof_generate(rng)
+        expect["off_curve_pk"] = ZKLAIM_ERROR
+
+        extra = Context.deserialize(wires[0], device)[0]
+        extra.pk = pk_bytes
+        extra.add_payload(Payload())
+        status["payload_count_mismatch"] = extra.proof_generate(rng)
+        expect["payload_count_mismatch"] = ZKLAIM_ERROR
+    if requests and num_payloads:
+        ctx, _ = Context.deserialize(proven[-1], device)
+        ctx.payloads[0].data_ref[0] ^= 1                  # the proof binds the references
+        status["tampered_reference"] = ctx.verify()
+        expect["tampered_reference"] = ZKLAIM_INVALID_PROOF
+        ctx.payloads[0].hash_payload(rng)                 # rehash: the signed view changes
+        status["tampered_reference_rehashed"] = ctx.verify()
+        expect["tampered_reference_rehashed"] = ZKLAIM_INVALID_SIGNATURE
+
+        unsat = copy.deepcopy(keep)                       # the last holder, preimages intact
+        first = unsat.payloads[0]
+        first.data_ref[0] = int.from_bytes(first.pre[:8], "little")
+        first.data_op[0] = ZkOp.LESS                      # attr < attr is false
+        status["unsatisfied_predicate"] = unsat.proof_generate(rng)
+        expect["unsatisfied_predicate"] = ZKLAIM_ERROR
+
+    out["status"], out["expected"] = status, expect
+    out["statuses_ok"] = status == expect
+    return out
+

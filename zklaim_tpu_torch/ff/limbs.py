@@ -18,7 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from zklaim_tpu.ff.params import LIMB_BITS, LIMB_MASK, NUM_LIMBS
+from .params import LIMB_BITS, LIMB_MASK, NUM_LIMBS
 
 __all__ = [
     "LIMB_BITS", "LIMB_MASK", "NUM_LIMBS", "int_to_limbs", "ints_to_limbs",

@@ -22,7 +22,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from zklaim_tpu.ff import params
+from . import params
 
 from .limbs import (
     LIMB_BITS,

@@ -15,12 +15,12 @@ in allocation order always yields a consistent assignment.
 
 Jax-free copy of zklaim_tpu/gadgets/bits.py: the code is identical and only the
 imports differ (..ff.limbs is this package's numpy/torch limb module,
-..ff.params is zklaim_tpu.ff.params), so the port imports without jax.
+..ff.params is this package's copy of the constants), so the port imports without jax.
 """
 
 from __future__ import annotations
 
-from zklaim_tpu.ff.params import R
+from ..ff.params import R
 from ..r1cs.system import (
     LC, ONE, ZERO, ConstraintSystem, bit_operand, signed_terms,
 )

@@ -12,12 +12,12 @@ less = less_or_eq AND nonzero.  Cost: n+6 constraints.
 
 Jax-free copy of zklaim_tpu/gadgets/compare.py: the code is identical and only the
 imports differ (..ff.limbs is this package's numpy/torch limb module,
-..ff.params is zklaim_tpu.ff.params), so the port imports without jax.
+..ff.params is this package's copy of the constants), so the port imports without jax.
 """
 
 from __future__ import annotations
 
-from zklaim_tpu.ff.params import R
+from ..ff.params import R
 from ..r1cs.system import LC, ONE, ZERO, ConstraintSystem
 from .bits import decompose, pack_lc
 

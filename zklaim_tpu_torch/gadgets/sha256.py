@@ -18,7 +18,7 @@ the summed packing LCs (35-bit split absorbs the carries of up to seven
 
 Jax-free copy of zklaim_tpu/gadgets/sha256.py: the code is identical and only the
 imports differ (..ff.limbs is this package's numpy/torch limb module,
-..ff.params is zklaim_tpu.ff.params), so the port imports without jax.
+..ff.params is this package's copy of the constants), so the port imports without jax.
 """
 
 from __future__ import annotations

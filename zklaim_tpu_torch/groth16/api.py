@@ -11,7 +11,7 @@ packages.  Work placement:
     Pippenger MSMs -- the four G1 sums as one batched msm_many, the G2
     sum alone -- launched back to back without a synchronisation between
     them, and the host finish on CurvePoints;
-  - verify: the shared host pairing product (zklaim_tpu.ec.pairing).
+  - verify: the host pairing product (..ec.pairing).
 The JAX package's compile-sharing workarounds (the shape-signature
 h-pipeline cache, power-of-two padding of the witness and of the
 fixed-base scalars) are not ported.
@@ -24,14 +24,14 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from zklaim_tpu.ec.hostcurve import CurvePoint, g1_generator, g2_generator
-from zklaim_tpu.ec.pairing import pairing_product_is_one
-from zklaim_tpu.ff.params import R
-
+from .. import resolve_device
 from ..ec import curve as C
+from ..ec.hostcurve import CurvePoint, g1_generator, g2_generator
+from ..ec.pairing import pairing_product_is_one
 from ..ff import montgomery as M
 from ..ff.limbs import ints_to_limbs, to_tensor
 from ..ff.montgomery import FR
+from ..ff.params import R
 from ..msm.fixedbase import fixed_base_mul
 from ..msm.pippenger import msm_many, msm_pow2
 from .qap import QAP
@@ -77,12 +77,13 @@ def _scalars(vals, device) -> torch.Tensor:
     return to_tensor(ints_to_limbs([v % R for v in vals]), device)
 
 
-def setup(cs, rng, device="cpu") -> tuple[ProvingKey, VerifyingKey, QAP]:
-    """Trusted setup over a finished ConstraintSystem; tables on `device`.
+def setup(cs, rng, device=None) -> tuple[ProvingKey, VerifyingKey, QAP]:
+    """Trusted setup over a finished ConstraintSystem; tables on `device`
+    (None: the card, default_device()).
 
     rng: random.Random-like (inject a seeded one for deterministic runs).
     """
-    qap = QAP.for_cs(cs, device)
+    qap = QAP.for_cs(cs, resolve_device(device))
     tau = rng.randrange(1, R)
     alpha = rng.randrange(1, R)
     beta = rng.randrange(1, R)

@@ -18,11 +18,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from zklaim_tpu.ff.params import R
-
 from ..ff import montgomery as M
 from ..ff.limbs import to_tensor
 from ..ff.montgomery import FR
+from ..ff.params import R
 from ..ntt.radix2 import NTTDomain, get_domain
 
 # reduce_wide is exact for int64 limbs < 2^47: at most 2^31 addends per row
@@ -64,7 +63,7 @@ class QAP:
     """
 
     def __init__(self, coo_host: dict, num_vars: int, num_primary: int, n_cons: int,
-                 device="cpu", cs=None):
+                 device, cs=None):
         self.cs = cs
         self.device = torch.device(device)
         self.num_vars = num_vars
@@ -86,7 +85,7 @@ class QAP:
             )
 
     @classmethod
-    def for_cs(cls, cs, device="cpu") -> "QAP":
+    def for_cs(cls, cs, device) -> "QAP":
         coo = with_consistency_rows(cs.to_coo(), cs.num_constraints, cs.num_primary)
         return cls(coo, cs.num_vars, cs.num_primary, cs.num_constraints, device, cs)
 

@@ -1,4 +1,4 @@
-"""Build, load and launch the hand-written CUDA kernels (K1-K4).
+"""Build, load and launch the hand-written CUDA kernels (K1-K5).
 
 The sources in ../csrc are compiled with ONE nvcc call into a shared
 library with a plain C interface, at first use, and loaded with ctypes:
@@ -48,6 +48,7 @@ KERNELS = {
     "ntt_local": ("zk_ntt_local", [_P, _I64, _P, _I64, _I, _I]),
     "ntt_stage": ("zk_ntt_stage", [_P, _I64, _P, _I64, _I]),
     "point_add": ("zk_point_add", [_I, _P, _I64, _I64, _P, _I64, _I64, _P, _I64, _I64, _I64]),
+    "point_double": ("zk_point_double", [_I, _P, _I64, _I64, _P, _I64, _I64, _I64]),
 }
 
 LAUNCHES = dict.fromkeys(KERNELS, 0)

@@ -10,6 +10,19 @@ multiples of the generator (a small pool, gathered to the lane count),
 each lane rescaled by a random Fq factor lambda so the projective
 coordinates differ lane to lane, with infinity, P + P and P + (-P) lanes
 mixed in.
+
+Each Case also carries the work of its call, from which `bound_ms` gives
+the least time the card could take for it: the larger of
+  - bytes / HBM_BYTES_PER_S: each input read once and each output written
+    once, FE_BYTES = 64 bytes per stored field element (16 int32 limbs);
+  - multiply-adds / INT32_MAD_PER_S: MADS_PER_PRODUCT 32-bit multiply-adds
+    per Montgomery product (csrc/field.cuh's CIOS: 8 rounds of 8 for
+    a * b[i], 1 for m = t[0] n', 8 for m * p), times the products per
+    element, butterfly or lane.
+The data sheet lists no int32 peak for the H100.  Hopper issues int32 on
+half of its FP32 lanes, so the rate is taken as the FP32 peak of
+67 TFLOP/s, over 2 (an FMA counts as two operations), over 2 again:
+16.75e12 multiply-adds per second at the card's full 700 W limit.
 """
 
 from __future__ import annotations
@@ -20,16 +33,25 @@ from typing import Callable
 import numpy as np
 import torch
 
-from zklaim_tpu.ec.hostcurve import g1_generator, g2_generator
-from zklaim_tpu.ff.params import R
-
 from ..ec import curve as C
 from ..ec import gpu_curve as G
+from ..ec.hostcurve import g1_generator, g2_generator
 from ..ff import montgomery as M
 from ..ff.limbs import ints_to_limbs, to_tensor
 from ..ff.montgomery import FQ, FR
 from ..ntt import gpu_ntt
 from ..ntt.radix2 import get_domain
+
+
+HBM_BYTES_PER_S = 3.35e12
+INT32_MAD_PER_S = 67e12 / 2 / 2
+FE_BYTES = 64
+MADS_PER_PRODUCT = 8 * (8 + 1 + 8)
+# Fq products per lane: K4 has 12 field products, K5 has 8; over Fq2 each is
+# 3 Fq products (Karatsuba), and 3b is a full Fq2 constant product (twice in
+# K4, once in K5), where over Fq it is an addition chain.
+ADD_PRODUCTS = {1: 12, 2: 12 * 3 + 2 * 3}
+DOUBLE_PRODUCTS = {1: 8, 2: 8 * 3 + 3}
 
 
 @dataclass
@@ -38,6 +60,16 @@ class Case:
     label: str
     run: Callable[[], torch.Tensor]    # launches the kernel
     plain: Callable[[], torch.Tensor]  # the plain version, same inputs
+    elements_moved: int                # field elements read once + written once
+    products: int                      # Montgomery products of the call
+
+
+def bound_ms(case: Case) -> tuple[float, str]:
+    """(least milliseconds the card could take for the case's work, the
+    side that sets it: "bytes" or "operations")."""
+    by_bytes = case.elements_moved * FE_BYTES / HBM_BYTES_PER_S * 1e3
+    by_ops = case.products * MADS_PER_PRODUCT / INT32_MAD_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
 def random_field(spec, n: int, rng: np.random.Generator, device) -> torch.Tensor:
@@ -88,36 +120,52 @@ def curve_inputs(deg: int, n: int, rng: np.random.Generator, device):
 
 def kernel_cases(device, n_field: int = 1 << 15, n_ntt: int = 1 << 15,
                  n_g1: int = 1 << 16, n_g2: int = 1 << 15, seed: int = 0) -> list:
-    """The four kernels at the given widths (defaults: the main path's)."""
+    """The five kernels at the given widths (defaults: the main path's;
+    the doubling also at the MSM finish's own widths, 4 G1 lanes and 1 G2
+    lane)."""
     rng = np.random.default_rng(seed)
     cases = []
     for spec in (FR, FQ):
         a, b = (random_field(spec, n_field, rng, device) for _ in range(2))
         cases.append(Case("mont_mul", f"K1 mont_mul {spec.name} n={n_field}",
                           lambda s=spec, a=a, b=b: M.mont_mul(s, a, b),
-                          lambda s=spec, a=a, b=b: M.mont_mul_plain(s, a, b)))
+                          lambda s=spec, a=a, b=b: M.mont_mul_plain(s, a, b),
+                          3 * n_field, n_field))
 
     dom = get_domain(n_ntt, str(device))
     x = random_field(FR, n_ntt, rng, device).t().contiguous()     # (16, n) planes
     lt = min(gpu_ntt.TILE, n_ntt).bit_length() - 1
+    # a run of stages reads and writes the n elements once and reads the
+    # twiddles of its stages (2^s at stage s); one product per butterfly
     for tw, name in ((dom.tw_flat, "forward"), (dom.tw_inv_flat, "inverse")):
         cases.append(Case("ntt_local", f"K2 ntt_local {name} n={n_ntt}",
                           lambda tw=tw: gpu_ntt.ntt_local(x.clone(), tw),
-                          lambda tw=tw: gpu_ntt.ntt_plain(x, tw, range(lt))))
+                          lambda tw=tw: gpu_ntt.ntt_plain(x, tw, range(lt)),
+                          2 * n_ntt + (1 << lt) - 1, lt * n_ntt // 2))
         if dom.k > lt:
             cases.append(Case("ntt_stage", f"K3 ntt_stage {name} n={n_ntt}",
                               lambda tw=tw: gpu_ntt.ntt_global(x.clone(), tw),
-                              lambda tw=tw: gpu_ntt.ntt_plain(x, tw, range(lt, dom.k))))
+                              lambda tw=tw: gpu_ntt.ntt_plain(x, tw, range(lt, dom.k)),
+                              2 * n_ntt + (1 << dom.k) - (1 << lt), (dom.k - lt) * n_ntt // 2))
 
     for deg, n in ((1, n_g1), (2, n_g2)):
         p, q = curve_inputs(deg, n, rng, device)
         cases.append(Case("point_add", f"K4 point_add G{deg} n={n}",
                           lambda d=deg, p=p, q=q: G.point_add_planes(d, p, q),
-                          lambda d=deg, p=p, q=q: G.point_add_plain(d, p, q)))
+                          lambda d=deg, p=p, q=q: G.point_add_plain(d, p, q),
+                          9 * deg * n, ADD_PRODUCTS[deg] * n))
     p, _ = curve_inputs(1, n_g1, rng, device)
     cases.append(Case("point_add", f"K4 point_add_halves G1 n={n_g1}",
-                      lambda: G.point_add_halves(1, p),
-                      lambda: G.point_add_plain(1, p[..., : n_g1 // 2], p[..., n_g1 // 2 :])))
+                      lambda p=p: G.point_add_halves(1, p),
+                      lambda p=p: G.point_add_plain(1, p[..., : n_g1 // 2], p[..., n_g1 // 2 :]),
+                      9 * n_g1 // 2, ADD_PRODUCTS[1] * n_g1 // 2))
+
+    for deg, n in ((1, n_g1), (2, n_g2), (1, 4), (2, 1)):
+        p = random_points(deg, n, rng, device)
+        cases.append(Case("point_double", f"K5 point_double G{deg} n={n}",
+                          lambda d=deg, p=p: G.point_double_planes(d, p),
+                          lambda d=deg, p=p: G.point_double_plain(d, p),
+                          6 * deg * n, DOUBLE_PRODUCTS[deg] * n))
     return cases
 
 

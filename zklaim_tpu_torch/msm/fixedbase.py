@@ -14,17 +14,16 @@ from functools import lru_cache
 
 import torch
 
-from zklaim_tpu.ec.hostcurve import CurvePoint, g1_generator, g2_generator
-
 from ..ec import curve as C
 from ..ec.gpu_curve import point_add_planes
+from ..ec.hostcurve import CurvePoint, g1_generator, g2_generator
 from ..ff.limbs import LIMB_BITS
 
 
 class FixedBaseTable:
     """Per-generator comb table as packed rows (W * 2^c, 48 deg) on `device`."""
 
-    def __init__(self, deg: int, gen: CurvePoint, c: int = 8, device="cpu"):
+    def __init__(self, deg: int, gen: CurvePoint, c: int, device):
         if LIMB_BITS % c:
             raise ValueError("window size must divide 16")
         self.deg, self.c, self.windows = deg, c, 256 // c
@@ -55,12 +54,12 @@ class FixedBaseTable:
 
 
 @lru_cache(maxsize=None)
-def g1_table(c: int = 8, device: str = "cpu") -> FixedBaseTable:
+def g1_table(c: int, device: str) -> FixedBaseTable:
     return FixedBaseTable(1, g1_generator(), c, device)
 
 
 @lru_cache(maxsize=None)
-def g2_table(c: int = 8, device: str = "cpu") -> FixedBaseTable:
+def g2_table(c: int, device: str) -> FixedBaseTable:
     return FixedBaseTable(2, g2_generator(), c, device)
 
 

@@ -18,11 +18,13 @@ msm_many runs k sums as one flat batch (window w of sum i is window
 i*W + w) and one finish whose Horner ladder is k lanes wide: the finish's
 ~W*c sequential adds are paid once for all k sums, not k times.
 
-Every point add, the finish's doublings included, goes through
-gpu_curve.point_add_planes / point_add_halves: kernel K4 on CUDA (a
-doubling is K4 with p = q, exact because the formula is complete), the
-plain version on CPU.  The finished point matches the JAX package's in
-affine form (the two finishes double by different complete formulas).
+Every point add goes through gpu_curve.point_add_planes /
+point_add_halves (kernel K4 on CUDA) and every doubling of the finish --
+(c - 1) on the window totals, then W*c in the Horner ladder -- through
+gpu_curve.point_double_planes (kernel K5 on CUDA); on CPU tensors both run
+their plain versions.  The finish has the JAX package's dataflow
+(jaxcurve.point_double, then point_add), so where the flat pipeline runs
+on both sides the finished point matches it projectively, limb for limb.
 The XLA-compile workaround msm_ladder is not ported: every N runs the
 flat pipeline.
 """
@@ -35,7 +37,7 @@ import numpy as np
 import torch
 
 from ..ec import curve as C
-from ..ec.gpu_curve import point_add_halves, point_add_planes
+from ..ec.gpu_curve import point_add_halves, point_add_planes, point_double_planes
 from ..ff import montgomery as M
 from ..ff.limbs import LIMB_BITS, NUM_LIMBS
 from ..ff.montgomery import FQ
@@ -161,9 +163,9 @@ def _window_partials(deg: int, tables: list, c: int):
 
 
 def _dbl_k(deg: int, p: torch.Tensor, k: int) -> torch.Tensor:
-    """k doublings, each a complete add of p to itself."""
+    """k complete doublings."""
     for _ in range(k):
-        p = point_add_planes(deg, p, p)
+        p = point_double_planes(deg, p)
     return p
 
 

@@ -79,5 +79,7 @@ def ntt_global(x: torch.Tensor, tw_flat: torch.Tensor, tile: int = TILE) -> torc
 
 
 def ntt_stages(x: torch.Tensor, tw_flat: torch.Tensor, tile: int = TILE) -> torch.Tensor:
-    """Every butterfly stage on (16, n) bit-reversed planes."""
+    """Every butterfly stage on (16, n) bit-reversed planes (n = 1: none)."""
+    if x.shape[1] == 1:
+        return x
     return ntt_global(ntt_local(x, tw_flat, tile), tw_flat, tile)

@@ -15,11 +15,10 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from zklaim_tpu.ff.params import FR_GENERATOR, R, ROOT_OF_UNITY, TWO_ADICITY
-
 from ..ff import montgomery as M
 from ..ff.limbs import ints_to_limbs, to_tensor
 from ..ff.montgomery import FR
+from ..ff.params import FR_GENERATOR, R, ROOT_OF_UNITY, TWO_ADICITY
 from . import gpu_ntt
 
 
@@ -37,9 +36,9 @@ def _powers(x: int, count: int) -> list:
 class NTTDomain:
     """Radix-2 evaluation domain of size n = 2^k over Fr, tables on `device`."""
 
-    def __init__(self, n: int, device="cpu"):
-        if n & (n - 1) or n < 2:
-            raise ValueError("domain size must be a power of two >= 2")
+    def __init__(self, n: int, device):
+        if n & (n - 1) or n < 1:
+            raise ValueError("domain size must be a power of two")
         k = n.bit_length() - 1
         if k > TWO_ADICITY:
             raise ValueError("domain too large for Fr two-adicity")
@@ -96,5 +95,5 @@ class NTTDomain:
 
 
 @lru_cache(maxsize=None)
-def get_domain(n: int, device: str = "cpu") -> NTTDomain:
+def get_domain(n: int, device: str) -> NTTDomain:
     return NTTDomain(n, device)

@@ -21,7 +21,7 @@ auxiliary.  A constraint is <A,w> * <B,w> = <C,w>.
 
 Jax-free copy of zklaim_tpu/r1cs/system.py: the code is identical and only the
 imports differ (..ff.limbs is this package's numpy/torch limb module,
-..ff.params is zklaim_tpu.ff.params), so the port imports without jax.
+..ff.params is this package's copy of the constants), so the port imports without jax.
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..ff.limbs import NUM_LIMBS, ints_to_limbs
-from zklaim_tpu.ff.params import R
+from ..ff.params import R
 
 
 class LC:

@@ -5,11 +5,20 @@
 
 1. Requires CUDA (exits non-zero without it) and prints the card's name
    and power limit.
-2. Builds the kernels K1-K5 from zklaim_tpu_torch/csrc with nvcc.
-3. Holds each kernel against its plain PyTorch version on the card, at the
-   main path's shapes, limb for limb (tolerance 0: integer arithmetic),
-   times both with CUDA events and prints each case's bound: the least
-   time the card could take for the same work (kernels/cases.py).
+2. Builds the kernels K1-K9 from zklaim_tpu_torch/csrc with nvcc.
+3. Probes phase: the four probes of the measuring path
+   (zklaim_tpu_torch.tools.mont_micro, pallas_op_micro, grid_micro,
+   padd_micro: kernels K6-K9), each at its original's shape and at a width that
+   fills the card; K6's wide row is the 32-bit multiply-add rate the card
+   sustains.  K6-K9 must have launched.
+   Then holds each of the nine kernels against its plain PyTorch version on
+   the card, at the shapes its path gives it (K6 also at the width that
+   fills the card), limb for limb and, for K7's f32fma, bit for bit
+   (tolerance 0 throughout: integer arithmetic, and a plain f32fma that
+   rounds once as the fused one does), times both with CUDA events and prints each
+   case's bound: the least time the card could take for the same work
+   (kernels/cases.py), against the assumed and against the measured
+   multiply-add rate.
 4. Drives the Groth16 path below the credential layer on ZKlaimCircuit(1)
    (entry.run_main_path): one trusted setup, three proofs of different
    payloads, each verified by the host verifier; an unsatisfied predicate
@@ -22,14 +31,22 @@
    way the flow must fail, each by its status code.  Prints the roles'
    seconds, the byte sizes, the peak device memory and the launch counts.
    For each of the two paths the launch counts are set to 0 just before and
-   read just after, and every kernel must have launched.
+   read just after, and each of K1-K5 must have launched.
 6. Holds the card against the CPU on the small circuit: the same seed must
    give the same proving key, verifying key and proof on both devices, as
    tensors and as serde bytes, and pk_from_bytes(pk_to_bytes(pk)) must
    return the same tables.
-7. Asserts that no jax module and no module of the JAX package was loaded.
-8. Prints the kernel table as one JSON line, then as the last line
-   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}.
+7. Bench phase: zklaim_tpu_torch.bench.bench_all on the card -- G1 and G2
+   MSM and Fr NTT at 2^16 / 2^20 / 2^22 points, the prover rows through
+   claims.api.Context, batched proving of 8 -- every row printed with its
+   peak device memory; K1-K5 must have launched.  Checks: the flat MSM
+   equals msm_ladder on a 2^10 prefix (G1 and G2); intt(ntt(x)) = x at 2^16;
+   every proof of a batched_prove verifies.
+8. The phase splits of prove and setup (tools.prove_profile,
+   tools.setup_profile) and of one MSM pass (tools.msm_stages), printed.
+9. Asserts that no jax module and no module of the JAX package was loaded.
+10. Prints the total seconds, the kernel table as one JSON line, then as the
+   last line {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}.
 
 No failure is caught: any phase that fails raises, and the script exits
 non-zero.  The full record goes to build/chip_smoke.json.
@@ -52,6 +69,10 @@ KERNEL_ROWS = {
     "ntt_stage": ("zklaim_tpu_torch/csrc/ntt.cu", "zklaim_tpu/ntt/pallas_ntt.py:152"),
     "point_add": ("zklaim_tpu_torch/csrc/curve.cu", "zklaim_tpu/ec/pallas_curve.py:222"),
     "point_double": ("zklaim_tpu_torch/csrc/curve.cu", "zklaim_tpu/ec/pallas_curve.py:233"),
+    "mont_chain": ("zklaim_tpu_torch/csrc/probes.cu", "tools/mont_micro.py:22"),
+    "op_chain": ("zklaim_tpu_torch/csrc/probes.cu", "tools/pallas_op_micro.py:27"),
+    "point_add_tiled": ("zklaim_tpu_torch/csrc/probes.cu", "tools/grid_micro.py:25"),
+    "point_add_chain": ("zklaim_tpu_torch/csrc/probes.cu", "tools/padd_micro.py:24"),
 }
 TABLES = ("a_g1", "b_g1", "b_g2", "h_g1", "l_g1")
 
@@ -72,13 +93,15 @@ def _ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _require_all_launched(launches: dict, path: str) -> None:
-    missing = [k for k in KERNEL_ROWS if launches.get(k, 0) == 0]
+def _require_launched(launches: dict, path: str, kernels) -> None:
+    missing = [k for k in kernels if launches.get(k, 0) == 0]
     if missing:
         raise AssertionError(f"kernels never launched on {path}: {missing}")
 
 
 def main() -> None:
+    t_start = time.perf_counter()
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -88,7 +111,18 @@ def main() -> None:
     from zklaim_tpu_torch.ec import curve as C
     from zklaim_tpu_torch.entry import run_credential_path, run_main_path, tiny_circuit
     from zklaim_tpu_torch.groth16.api import prove, setup
-    from zklaim_tpu_torch.kernels.cases import bound_ms, kernel_cases, max_abs_err
+    from zklaim_tpu_torch import bench
+    from zklaim_tpu_torch.groth16.api import verify
+    from zklaim_tpu_torch.kernels.cases import (
+        INT32_MAD_PER_S, bound_ms, kernel_cases, max_abs_err,
+    )
+    from zklaim_tpu_torch.msm.pippenger import msm_ladder, msm_pow2
+    from zklaim_tpu_torch.ntt.radix2 import get_domain
+    from zklaim_tpu_torch.parallel.prove import batched_prove
+    from zklaim_tpu_torch.tools import (
+        grid_micro, mont_micro, msm_stages, padd_micro, pallas_op_micro, prove_profile,
+        setup_profile,
+    )
 
     name = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
@@ -112,12 +146,33 @@ def main() -> None:
             print("  ptxas:", line.split("ptxas info    :")[-1].strip())
     sys.stdout.flush()
 
-    # -- 3. kernel vs plain at main-path shapes ----------------------------
+    # -- 3a. probes phase: K6-K9 through their tools ------------------------
     dev = torch.device("cuda:0")
     rows = {k: {"name": k, "route": "cuda", "source": s, "replaces": r, "launches": 0,
                 "max_abs_err": 0, "ms": None, "plain_ms": None, "bound_ms": None,
                 "bound_by": None, "library_ms": None}
             for k, (s, r) in KERNEL_ROWS.items()}
+    torch.cuda.synchronize()
+    K.reset_launches()
+    record["probes"] = []
+    for tool in (mont_micro, pallas_op_micro, grid_micro, padd_micro):
+        for row in tool.measure(dev):
+            record["probes"].append(row)
+            print(tool.format_row(row), flush=True)
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    print(f"[{card}] probes phase launches {launches}")
+    _require_launched(launches, "the probes phase", K.PROBE_KERNELS)
+    for k in K.PROBE_KERNELS:
+        rows[k]["launches"] = launches[k]
+    wide = [r for r in record["probes"] if r["kernel"] == "mont_chain"][-1]
+    measured_mads = wide["mads_per_s"]
+    record["measured_mads_per_s"] = measured_mads
+    print(f"[{card}] 32-bit multiply-adds in Montgomery products: measured "
+          f"{measured_mads / 1e12:.3f} T/s (K6, {wide['lanes']} lanes) against the assumed "
+          f"{INT32_MAD_PER_S / 1e12:.2f} T/s", flush=True)
+
+    # -- 3b. kernel vs plain at the paths' shapes ----------------------------
     record["cases"] = []
     for case in kernel_cases(dev, seed=SEED):
         got, want = case.run(), case.plain()
@@ -125,11 +180,15 @@ def main() -> None:
         err = max_abs_err(got, want)
         ms, plain_ms = _ms(case.run, 20), _ms(case.plain, 3)
         bound, bound_by = bound_ms(case)
+        bound_m, bound_m_by = bound_ms(case, measured_mads)
         print(f"[{card}] {case.label}: max_abs_err {err}, kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms, bound {bound:.4g} ms by {bound_by} "
-              f"({100 * bound / ms:.2f} % of the kernel's time)", flush=True)
-        record["cases"].append({"label": case.label, "max_abs_err": err, "ms": ms,
-                                "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by})
+              f"({100 * bound / ms:.2f} % of the kernel's time); at the measured multiply-add "
+              f"rate {bound_m:.4g} ms by {bound_m_by} ({100 * bound_m / ms:.2f} %)", flush=True)
+        record["cases"].append({"label": case.label, "max_abs_err": err,
+                                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                                "bound_by": bound_by, "bound_measured_rate_ms": bound_m,
+                                "bound_measured_rate_by": bound_m_by})
         if err != 0:
             raise AssertionError(f"{case.label}: kernel disagrees with plain version")
         row = rows[case.kernel]
@@ -160,8 +219,8 @@ def main() -> None:
         raise AssertionError("an unsatisfied predicate was proved")
     if not res["wrong_input_rejected"]:
         raise AssertionError("a proof verified against a wrong public input")
-    _require_all_launched(launches, "run_main_path")
-    for k in rows:
+    _require_launched(launches, "run_main_path", K.PATH_KERNELS)
+    for k in K.PATH_KERNELS:
         rows[k]["launches_run_main_path"] = launches[k]
 
     # -- 5. the credential path through claims.api.Context -------------------
@@ -193,9 +252,9 @@ def main() -> None:
         raise AssertionError(f"status codes {cred['status']} != expected {cred['expected']}")
     if cred["status"]["verify"] != [0, 0, 0]:
         raise AssertionError(f"three verified proofs expected: {cred['status']['verify']}")
-    _require_all_launched(launches, "run_credential_path")
-    _require_all_launched(cred["reprove_launches"], "proof_generate")
-    for k in rows:
+    _require_launched(launches, "run_credential_path", K.PATH_KERNELS)
+    _require_launched(cred["reprove_launches"], "proof_generate", K.PATH_KERNELS)
+    for k in K.PATH_KERNELS:
         rows[k]["launches"] = launches[k]
         rows[k]["launches_proof_generate"] = cred["reprove_launches"][k]
         rows[k]["launches_trusted_setup"] = cred["trusted_setup_launches"][k]
@@ -231,7 +290,66 @@ def main() -> None:
           f"and as bytes ({len(raw['cuda'][0])} B pk); pk bytes round trip on the card",
           flush=True)
 
-    # -- 7. nothing of jax or the JAX package was loaded -----------------------
+    # -- 7. bench phase: bench_all at the original's sizes ---------------------
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    bench.bench_all(str(Path("build") / "bench_all.json"), dev)     # prints each row (stderr)
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    record["bench"] = json.loads((Path("build") / "bench_all.json").read_text())
+    for row in record["bench"]:
+        print(f"[{card}] bench {json.dumps(row)}")
+    print(f"[{card}] bench phase {time.perf_counter() - t0:.1f} s; launches {launches}", flush=True)
+    _require_launched(launches, "the bench phase", K.PATH_KERNELS)
+    if len(record["bench"]) != 18:
+        raise AssertionError(f"bench_all gave {len(record['bench'])} rows, 18 expected")
+    for k in K.PATH_KERNELS:
+        rows[k]["launches_bench"] = launches[k]
+
+    nrng = np.random.default_rng(SEED)
+
+    def limbs(n, top):           # (n, 16) canonical limbs of values below top * 2^240
+        v = nrng.integers(0, 1 << 16, size=(n, 16))
+        v[:, 15] = nrng.integers(0, top, size=n)
+        return torch.from_numpy(v.astype(np.int32)).to(dev)
+
+    for deg in (1, 2):
+        pts, sc = bench.make_points(deg, 1 << 10, dev), limbs(1 << 10, 0x2000)
+        flat = C.planes_to_host_points(deg, msm_pow2(deg, pts, sc))[0]
+        ladder = C.planes_to_host_points(deg, msm_ladder(deg, pts, sc))[0]
+        if flat != ladder:
+            raise AssertionError(f"G{deg}: the flat MSM and msm_ladder differ on 2^10 points")
+    dom = get_domain(1 << 16, str(dev))
+    x = limbs(1 << 16, 0x3064)                    # below r: its top limb is 0x3064
+    if not torch.equal(dom.intt(dom.ntt(x)), x):
+        raise AssertionError("intt(ntt(x)) != x at 2^16")
+    circ_rng = random.Random(SEED)
+    ctx = bench.demo_context(circ_rng, dev)
+    from zklaim_tpu_torch.claims.circuit import ZKlaimCircuit
+
+    circ = ZKlaimCircuit(1)
+    pk1, vk1, qap1 = setup(circ.cs, circ_rng, dev)
+    inputs = [(pl.pre, pl.data_ref, pl.op_positions()) for pl in ctx.payloads]
+    batch = batched_prove(pk1, qap1, [circ.witness(inputs)] * 3, circ_rng)
+    if len(batch) != 3 or not all(verify(vk1, circ.public_inputs(inputs), pr) for pr in batch):
+        raise AssertionError("a proof of batched_prove did not verify")
+    print(f"[{card}] checks: flat MSM = msm_ladder on 2^10 points (G1, G2); intt(ntt(x)) = x "
+          f"at 2^16; 3 proofs of batched_prove verify", flush=True)
+
+    # -- 8. phase splits of prove, setup and one MSM pass -------------------------
+    record["prove_profile"] = prove_profile.measure(dev)
+    print("\n".join(prove_profile.format_rows(record["prove_profile"])))
+    record["setup_profile"] = setup_profile.measure(dev)
+    print("\n".join(setup_profile.format_rows(record["setup_profile"])))
+    record["msm_stages"] = []
+    for deg, log2n in ((1, 16), (2, 15)):
+        stage_rows = msm_stages.measure(dev, log2n, deg=deg)
+        record["msm_stages"] += stage_rows
+        print("\n".join(msm_stages.format_rows(stage_rows)))
+    sys.stdout.flush()
+
+    # -- 9. nothing of jax or the JAX package was loaded -----------------------
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "zklaim_tpu"))
     if foreign:
@@ -240,7 +358,9 @@ def main() -> None:
 
     out = Path("build")
     out.mkdir(exist_ok=True)
+    record["total_s"] = time.perf_counter() - t_start
     (out / "chip_smoke.json").write_text(json.dumps(record, indent=1, default=str))
+    print(f"[{card}] total {record['total_s']:.1f} s")
     print(smi)                                   # name, power limit as nvidia-smi gives them
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))

@@ -1,4 +1,4 @@
-"""Kernels K1-K5 against their plain versions on the card (needs CUDA).
+"""Kernels K1-K9 against their plain versions on the card (needs CUDA).
 
 Run on a machine with an NVIDIA GPU (no jax needed there, hence
 --noconftest):
@@ -6,8 +6,9 @@ Run on a machine with an NVIDIA GPU (no jax needed there, hence
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
 Each test skips inside the `cuda` fixture when no card is present, so
-every worker collects the same tests.  Comparisons are exact (integer
-arithmetic: tolerance 0).
+every worker collects the same tests.  Comparisons are exact, tolerance 0:
+integer arithmetic, and for the probe K7's f32fma a plain version that takes
+each step exactly in float64 and rounds once, as the fused kernel does.
 """
 
 import random
@@ -47,7 +48,8 @@ def test_kernel_matches_plain_at_main_path_shapes(cases, kernel):
         got = case.run()
         torch.cuda.synchronize()
         assert K.LAUNCHES[kernel] > before, case.label
-        assert max_abs_err(got, case.plain()) == 0, case.label
+        want = case.plain()
+        assert max_abs_err(got, want) == 0, case.label
 
 
 def test_wrappers_reject_bad_operands(cuda):
@@ -113,11 +115,69 @@ def test_small_circuit_same_on_card_and_cpu(cuda):
 
 def test_main_path_launches_every_kernel(cuda):
     """On the small circuit (m = 512) every NTT stage fits in one K2 tile,
-    so K3 must not launch there; the others, K5 included, must."""
+    so K3 must not launch there; the other kernels of the proving paths, K5
+    included, must, and no probe kernel may."""
     K.reset_launches()
     res = run_main_path(cuda, requests=1, seed=9, tiny=True)
     assert res["verified"] == [True]
     assert res["unsatisfied_rejected"] and res["wrong_input_rejected"]
     assert res["m"] <= gpu_ntt.TILE
     assert K.LAUNCHES["ntt_stage"] == 0, K.LAUNCHES
-    assert all(v > 0 for k, v in K.LAUNCHES.items() if k != "ntt_stage"), K.LAUNCHES
+    assert all(K.LAUNCHES[k] > 0 for k in K.PATH_KERNELS if k != "ntt_stage"), K.LAUNCHES
+    assert all(K.LAUNCHES[k] == 0 for k in K.PROBE_KERNELS), K.LAUNCHES
+
+
+def test_probe_wrappers_reject_bad_operands(cuda):
+    from zklaim_tpu_torch.tools.grid_micro import point_add_tiled
+    from zklaim_tpu_torch.tools.mont_micro import mont_chain
+    from zklaim_tpu_torch.tools.padd_micro import point_add_chain
+    from zklaim_tpu_torch.tools.pallas_op_micro import op_chain
+
+    x = torch.zeros((16, 8), dtype=torch.int32, device=cuda)
+    p = torch.zeros((3, 16, 8), dtype=torch.int32, device=cuda)
+    for bad in (lambda: mont_chain(x.long(), 1), lambda: mont_chain(x.t(), 1),
+                lambda: mont_chain(x, -1), lambda: op_chain("u32mul", x.float(), 1),
+                lambda: op_chain("f32fma", x, 1), lambda: op_chain("u64mul", x, 1),
+                lambda: point_add_tiled(p, p[..., :4], 4), lambda: point_add_tiled(p, p, 0),
+                lambda: point_add_chain(p.transpose(1, 2), 1), lambda: point_add_chain(p, -1)):
+        with pytest.raises(ValueError):
+            bad()
+
+
+def test_probes_scale_linearly_in_chain_length(cuda):
+    """The compiler did not fold a probe's loop: the time of 4 K steps is
+    well above that of K steps (between 2 and 6 times it), for every op, and
+    no op runs above one instruction a lane a clock on every SM (132 SMs x
+    128 lanes x 2 GHz): merged steps would."""
+    from zklaim_tpu_torch.tools import mont_micro, pallas_op_micro
+    from zklaim_tpu_torch.utils.profiling import best_ms
+
+    x = mont_micro.probe_input(mont_micro.WIDE_LANES, cuda)
+    t1, t4 = (best_ms(lambda k=k: mont_micro.mont_chain(x, k), cuda) for k in (256, 1024))
+    assert 2 < t4 / t1 < 6, (t1, t4)
+    for op in pallas_op_micro.OPS:
+        v = pallas_op_micro.probe_input(op, pallas_op_micro.WIDE_COLS, cuda)
+        t1, t4 = (best_ms(lambda k=k: pallas_op_micro.op_chain(op, v, k), cuda)
+                  for k in (2000, 8000))
+        assert 2 < t4 / t1 < 6, (op, t1, t4)
+        assert v.numel() * 6000 / ((t4 - t1) * 1e-3) < 132 * 128 * 2e9, (op, t1, t4)
+
+
+def test_bench_entry_point_in_a_fresh_process(cuda):
+    """`python -m zklaim_tpu_torch.bench --full` and the default run each
+    print one JSON row taken on the card (a fresh process: no CUDA context
+    exists when the first row resets the peak-memory counter)."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent.parent
+    for args, metric in ((["--full"], "groth16_prover_latency_1payload"),
+                         (["--log2n", "12"], "g1_msm_2^12_points_per_sec")):
+        out = subprocess.run([sys.executable, "-m", "zklaim_tpu_torch.bench", *args], cwd=root,
+                             capture_output=True, text=True, timeout=600)
+        assert out.returncode == 0, out.stderr[-2000:]
+        row = json.loads(out.stdout.strip().splitlines()[-1])
+        assert row["metric"] == metric and row["impl"] == "torch" and row["value"] > 0
+        assert row["device"].startswith(torch.cuda.get_device_name(0))

@@ -4,8 +4,10 @@ A subprocess blocks both -- a sys.meta_path finder that raises on `jax`,
 `jaxlib`, `zklaim_tpu` and anything below them -- imports the port and
 runs, on the CPU, its Groth16 main path on the small circuit (setup, one
 proof, its verification, the unsatisfied and wrong-input rejections) and
-the zero-payload credential flow through claims.api.Context.  The source
-scan rejects any import of either in the package and in chip_smoke.py.
+the zero-payload credential flow through claims.api.Context, imports the
+measuring path (bench, parallel.prove, utils.profiling and every module of
+tools) and drives one probe.  The source scan rejects any import of either
+in the package and in chip_smoke.py.
 """
 
 import json
@@ -45,10 +47,21 @@ import zklaim_tpu_torch
 from zklaim_tpu_torch import cli
 from zklaim_tpu_torch.claims import api, serde, store
 from zklaim_tpu_torch.entry import run_credential_path, run_main_path
+from zklaim_tpu_torch import bench
+from zklaim_tpu_torch.parallel import prove as parallel_prove
+from zklaim_tpu_torch.utils import profiling
+from zklaim_tpu_torch.tools import (
+    grid_micro, layout_probe, mont_micro, msm_micro, msm_probe, msm_stages, padd_micro,
+    pallas_micro, pallas_op_micro, prove_profile, setup_profile, vpu_micro,
+)
+probe_rows = pallas_op_micro.measure("cpu", widths=(16,)) + mont_micro.measure("cpu", widths=(4,))
+ntt_row = bench.bench_ntt(3, runs=1, device="cpu")
 res = run_main_path("cpu", requests=1, seed=5, tiny=True)
 cred = run_credential_path("cpu", num_payloads=0, requests=1, seed=5)
 res["credential_statuses_ok"] = cred["statuses_ok"]
 res["credential_verify"] = cred["status"]["verify"]
+res["probe_devices"] = sorted({r["device"] for r in probe_rows})
+res["ntt_metric"] = ntt_row["metric"]
 res["foreign"] = sorted(m for m, v in sys.modules.items()
                         if v is not None and m.split(".")[0] in BLOCKED)
 print(json.dumps(res))
@@ -64,6 +77,7 @@ def test_main_path_runs_with_jax_blocked():
     assert res["unsatisfied_rejected"] and res["wrong_input_rejected"]
     assert (res["num_vars"], res["m"]) == (281, 512)
     assert res["credential_statuses_ok"] and res["credential_verify"] == [0]
+    assert res["probe_devices"] == ["cpu"] and res["ntt_metric"] == "ntt_fr_2^3_elems_per_sec"
     assert res["foreign"] == []
 
 

@@ -1,0 +1,195 @@
+"""The plain versions of the probe kernels K6-K9 against the JAX package's
+in-kernel arithmetic and the host oracles.
+
+The JAX probes (tools/*_micro.py) launch on a TPU while they are imported,
+so they are not imported here: their kernel bodies are re-run eagerly from
+the same functions they call (pallas_field.mont_mul, pallas_curve._rcb_add
+with _Fq), which are plain jnp code, and K7's four expressions
+(tools/pallas_op_micro.py:18-25) are written out in numpy uint32 / float32.
+The port's probes draw residues below p and points on the curve; on those
+inputs the two packages agree limb for limb from the first step on.
+
+Tolerance 0 everywhere.  f32fma's plain version is held bit for bit to a
+fused multiply-add computed exactly (Python fractions, one rounding a step:
+what the card's kernel computes), and beside that, element by element, to
+the original's float32 expression, which rounds twice a step: within
+K ulps, stated as a relative K * 2^-23.
+"""
+
+from fractions import Fraction
+
+import numpy as np
+import pytest
+
+import jax.numpy as jnp
+import torch
+
+from zklaim_tpu.ec import pallas_curve as PC
+from zklaim_tpu.ff import pallas_field as PF
+
+from zklaim_tpu_torch.ec import curve as C
+from zklaim_tpu_torch.ec.gpu_curve import point_add_plain
+from zklaim_tpu_torch.ff.montgomery import FQ
+from zklaim_tpu_torch.ff.params import Q
+from zklaim_tpu_torch.kernels import KERNELS, PROBE_KERNELS
+from zklaim_tpu_torch.kernels.cases import (
+    LANE_CLOCKS_PER_S, bound_ms, curve_inputs, max_abs_err, probe_cases, random_field, random_points,
+)
+from zklaim_tpu_torch.tools import grid_micro, mont_micro, padd_micro, pallas_op_micro
+
+torch.set_num_threads(1)
+
+MONT_R = 1 << 256
+
+
+def _jnp(planes: torch.Tensor):
+    return jnp.asarray(planes.numpy().astype(np.uint32))
+
+
+@pytest.mark.parametrize("k", [0, 1, 5])
+def test_mont_chain_plain_matches_pallas_field_and_host(k):
+    x = random_field(FQ, 8, np.random.default_rng(k), "cpu").t().contiguous()     # (16, 8)
+    got = mont_micro.mont_chain(x, k)                  # a CPU tensor: the plain version
+    assert torch.equal(got, mont_micro.mont_chain_plain(x, k))
+
+    v = _jnp(x)
+    for _ in range(k):
+        v = PF.mont_mul(v, v, jnp.asarray(PF.FQ_P), jnp.asarray(PF.FQ_NP))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(v).astype(np.int32))
+
+    # x holds a R: after k squarings a^(2^k) R, so the raw value is
+    # x^(2^k) R^(1 - 2^k) mod p
+    r_inv = pow(MONT_R, -1, Q)
+    raw_in = [sum(int(l) << (16 * j) for j, l in enumerate(col)) for col in x.t().tolist()]
+    raw_out = [sum(int(l) << (16 * j) for j, l in enumerate(col)) for col in got.t().tolist()]
+    for a, b in zip(raw_in, raw_out):
+        assert b == pow(a, 1 << k, Q) * pow(r_inv, (1 << k) - 1, Q) % Q
+
+
+@pytest.mark.parametrize("k", [1, 3])
+def test_point_add_chain_plain_matches_rcb_add_and_host(k):
+    p = random_points(1, 8, np.random.default_rng(10 + k), "cpu", pool=6)      # (3, 16, 8)
+    got = padd_micro.point_add_chain(p, k)
+    assert torch.equal(got, padd_micro.point_add_chain_plain(p, k))
+
+    f = PC._Fq(jnp.asarray(PF.FQ_P), jnp.asarray(PF.FQ_NP))
+    pt = tuple(_jnp(c) for c in p)
+    for _ in range(k):
+        pt = PC._rcb_add(f, pt, pt)
+    np.testing.assert_array_equal(got.numpy(), np.stack([np.asarray(c) for c in pt]).astype(np.int32))
+
+    host_in = C.planes_to_host_points(1, p)
+    assert C.planes_to_host_points(1, got) == [q * (1 << k) for q in host_in]
+    assert any(q.inf for q in host_in)                 # infinity is among the lanes
+
+
+def test_point_add_chain_of_zero_steps_is_a_copy():
+    p = random_points(1, 4, np.random.default_rng(3), "cpu", pool=4)
+    out = padd_micro.point_add_chain(p, 0)
+    assert torch.equal(out, p) and out.data_ptr() != p.data_ptr()
+
+
+@pytest.mark.parametrize("tile", [1, 3, 8, 16, 64])
+def test_point_add_tiled_plain_is_point_add_for_every_tile(tile):
+    p, q = curve_inputs(1, 16, np.random.default_rng(7), "cpu")
+    want = point_add_plain(1, p, q)
+    assert torch.equal(grid_micro.point_add_tiled(p, q, tile), want)
+    with pytest.raises(ValueError):
+        grid_micro.point_add_tiled_plain(p, q, 0)
+
+
+def _numpy_op(op: str, v: np.ndarray, k: int) -> np.ndarray:
+    """tools/pallas_op_micro.py:18-25 in numpy, k steps."""
+    with np.errstate(over="ignore"):
+        for _ in range(k):
+            if op == "u32mul":
+                v = v * (v | np.uint32(1))
+            elif op == "u32add":
+                v = v + (v ^ np.uint32(12345))
+            elif op == "f32fma":
+                v = v * np.float32(1.0000001) + np.float32(0.5)
+            elif op == "u16mul":
+                v = (v & np.uint32(0xFFFF)) * np.uint32(3)
+    return v
+
+
+@pytest.mark.parametrize("k", [1, 7, 64])
+@pytest.mark.parametrize("op", pallas_op_micro.OPS)
+def test_op_chain_plain_matches_numpy(op, k):
+    x = pallas_op_micro.probe_input(op, 96, "cpu", seed=k)
+    if op != "f32fma":
+        # also bit patterns with the top bit set, where int32 and uint32 part
+        x[0, :4] = torch.tensor([-1, -2147483648, 0x7FFFFFFF, -12345], dtype=torch.int32)
+    got = pallas_op_micro.op_chain(op, x, k)
+    assert got.dtype == x.dtype and got.shape == x.shape
+    if op == "f32fma":
+        want = _numpy_op(op, x.numpy().copy(), k)
+        assert want.dtype == np.float32
+        np.testing.assert_allclose(got.numpy(), want, rtol=k * 2.0 ** -23, atol=0)
+        # a fused step, exactly: v a + b as a fraction, rounded once to float32
+        a, b = Fraction(float(np.float32(1.0000001))), Fraction(1, 2)
+        for col in range(0, 96, 7):
+            v = Fraction(float(x[3, col]))
+            for _ in range(k):
+                v = Fraction(float(np.float32(float(v * a + b))))
+                assert v * a + b == Fraction(float(v * a + b))      # float64 holds it exactly
+            assert float(got[3, col]) == float(v)
+    else:
+        want = _numpy_op(op, x.numpy().view(np.uint32).copy(), k)
+        np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
+
+
+def test_op_chain_rejects_wrong_types():
+    x = pallas_op_micro.probe_input("u32mul", 8, "cpu")
+    with pytest.raises(ValueError):
+        pallas_op_micro.op_chain("f32fma", x, 1)
+    with pytest.raises(ValueError):
+        pallas_op_micro.op_chain("u32mul", x.float(), 1)
+    with pytest.raises(ValueError):
+        pallas_op_micro.op_chain("u64mul", x, 1)
+
+
+def test_probe_cases_cover_k6_to_k9_and_agree_on_the_cpu():
+    """The case list chip_smoke.py and the card tests run, rehearsed on the
+    CPU (both sides are then the plain version): every probe kernel has a
+    case, each is bound to its own inputs, and the bound is positive."""
+    cases = probe_cases("cpu", np.random.default_rng(0), k_mont=2, k_op=3, k_add=1, n_tiled=16,
+                        wide_lanes=24)
+    assert [c.label for c in cases if c.kernel == "mont_chain"] == [
+        "K6 mont_chain Fq lanes=1024 K=2", "K6 mont_chain Fq lanes=24 K=2"]
+    assert {c.kernel for c in cases} == set(PROBE_KERNELS) <= set(KERNELS)
+    labels = [c.label for c in cases]
+    assert len(set(labels)) == len(labels)
+    for case in cases:
+        got, want = case.run(), case.plain()
+        assert max_abs_err(got, want) == 0, case.label
+        ms, by = bound_ms(case)
+        assert ms > 0 and by in ("bytes", "operations")
+    # a chain of k products is bound by operations, not by its 128 bytes a lane
+    long_chain = probe_cases("cpu", np.random.default_rng(0), k_mont=512, n_tiled=16,
+                             wide_lanes=8)[0]
+    assert bound_ms(long_chain)[1] == "operations"
+    assert bound_ms(long_chain, mad_per_s=1e12)[0] > bound_ms(long_chain)[0]
+    # K7 at the probe's own length counts operations over the rate the lanes start them at:
+    # two a step for the integer ops, one for f32fma
+    k, n = pallas_op_micro.CHAIN[1], pallas_op_micro.ROWS * pallas_op_micro.COLS
+    by_op = {c.label.split()[2]: c for c in probe_cases("cpu", np.random.default_rng(0), k_mont=1,
+                                                        k_op=k, n_tiled=16, wide_lanes=8)
+             if c.kernel == "op_chain"}
+    for op, per_step in (("u32mul", 2), ("u32add", 2), ("u16mul", 2), ("f32fma", 1)):
+        assert bound_ms(by_op[op]) == (per_step * k * n / LANE_CLOCKS_PER_S * 1e3, "operations"), op
+
+
+@pytest.mark.parametrize("tool", [mont_micro, pallas_op_micro, padd_micro])
+def test_measure_on_the_cpu_names_the_cpu(tool):
+    """A CPU drive of a probe says "cpu" on every row: no device metric."""
+    rows = tool.measure("cpu", widths=(16,))
+    assert rows and all(r["device"] == "cpu" and r["kernel"] in PROBE_KERNELS for r in rows)
+    assert all("cpu" in tool.format_row(r) for r in rows)
+
+
+def test_grid_micro_measure_on_the_cpu():
+    rows = grid_micro.measure("cpu", 16, tiles=(4, 16, 64))
+    assert [r["tile"] for r in rows] == [4, 16]        # tiles above n collapse to n
+    assert [r["ctas"] for r in rows] == [4, 1]
+    assert all(r["device"] == "cpu" for r in rows)

@@ -11,8 +11,9 @@
 // K4 point_add
 // Replaces: zklaim_tpu/ec/pallas_curve.py:_add_kernel, launched through
 // _padd_soa (point_add_planes) and _padd_halves_soa (point_add_halves).
-// The formula dataflow is _rcb_add (pallas_curve.py:143-164), so the
-// projective outputs are bit-identical to jaxcurve.point_add.  With
+// The formula is rcb.cuh's rcb_add, the dataflow of _rcb_add
+// (pallas_curve.py:143-164), so the projective outputs are bit-identical to
+// jaxcurve.point_add; the probes of probes.cu call the same function.  With
 // per-operand strides the halves mode of the MSM upsweep -- lo half + hi
 // half of one plane set -- is one launch on two strided views, with no
 // copy and no second kernel.
@@ -39,6 +40,7 @@
 #include <cuda_runtime.h>
 
 #include "field.cuh"
+#include "rcb.cuh"
 
 template <int DEG>
 __global__ void point_add_kernel(const int32_t* __restrict__ p, int64_t p_ps, int64_t p_ls,
@@ -56,23 +58,8 @@ __global__ void point_add_kernel(const int32_t* __restrict__ p, int64_t p_ps, in
   const T y2 = Fd::load(q, q_ps, q_ls, 1, i);
   const T z2 = Fd::load(q, q_ps, q_ls, 2, i);
 
-  const T t0 = Fd::mul(x1, x2);
-  const T t1 = Fd::mul(y1, y2);
-  const T t2 = Fd::mul(z1, z2);
-  const T m0 = Fd::mul(Fd::add(x1, y1), Fd::add(x2, y2));
-  const T m1 = Fd::mul(Fd::add(y1, z1), Fd::add(y2, z2));
-  const T m2 = Fd::mul(Fd::add(x1, z1), Fd::add(x2, z2));
-  const T t3 = Fd::sub(m0, Fd::add(t0, t1));
-  const T t4 = Fd::sub(m1, Fd::add(t1, t2));
-  const T t5 = Fd::sub(m2, Fd::add(t0, t2));
-  const T m = Fd::add(Fd::dbl(t0), t0);
-  const T nb = Fd::mul_b3(t2);
-  const T bv = Fd::mul_b3(t5);
-  const T wmn = Fd::sub(t1, nb);
-  const T wpn = Fd::add(t1, nb);
-  const T x3 = Fd::sub(Fd::mul(t3, wmn), Fd::mul(t4, bv));
-  const T y3 = Fd::add(Fd::mul(wpn, wmn), Fd::mul(m, bv));
-  const T z3 = Fd::add(Fd::mul(t4, wpn), Fd::mul(t3, m));
+  T x3, y3, z3;
+  rcb_add<DEG>(x1, y1, z1, x2, y2, z2, x3, y3, z3);
 
   Fd::store(out, o_ps, o_ls, 0, i, x3);
   Fd::store(out, o_ps, o_ls, 1, i, y3);

@@ -1,0 +1,43 @@
+// The complete projective point add (Renes-Costello-Batina 2016, alg. 7,
+// a = 0) as one device function, templated on the field degree (1: G1 over
+// Fq, 2: G2 over Fq2).
+//
+// Replaces: zklaim_tpu/ec/pallas_curve.py:_rcb_add (lines 143-164), the
+// formula every Pallas add kernel inlines.  The dataflow is _rcb_add's, so
+// the projective outputs are bit-identical to jaxcurve.point_add.
+//
+// K4 (curve.cu) and the probes K8 and K9 (probes.cu) all call this one
+// function, so a probe times exactly the arithmetic the production kernel
+// runs.  The outputs may alias the inputs: every input is read before the
+// first output is written.
+#pragma once
+
+#include "field.cuh"
+
+template <int DEG>
+__device__ __forceinline__ void rcb_add(
+    const typename CurveField<DEG>::T& x1, const typename CurveField<DEG>::T& y1,
+    const typename CurveField<DEG>::T& z1, const typename CurveField<DEG>::T& x2,
+    const typename CurveField<DEG>::T& y2, const typename CurveField<DEG>::T& z2,
+    typename CurveField<DEG>::T& x3, typename CurveField<DEG>::T& y3,
+    typename CurveField<DEG>::T& z3) {
+  typedef CurveField<DEG> Fd;
+  typedef typename Fd::T T;
+  const T t0 = Fd::mul(x1, x2);
+  const T t1 = Fd::mul(y1, y2);
+  const T t2 = Fd::mul(z1, z2);
+  const T m0 = Fd::mul(Fd::add(x1, y1), Fd::add(x2, y2));
+  const T m1 = Fd::mul(Fd::add(y1, z1), Fd::add(y2, z2));
+  const T m2 = Fd::mul(Fd::add(x1, z1), Fd::add(x2, z2));
+  const T t3 = Fd::sub(m0, Fd::add(t0, t1));
+  const T t4 = Fd::sub(m1, Fd::add(t1, t2));
+  const T t5 = Fd::sub(m2, Fd::add(t0, t2));
+  const T m = Fd::add(Fd::dbl(t0), t0);
+  const T nb = Fd::mul_b3(t2);
+  const T bv = Fd::mul_b3(t5);
+  const T wmn = Fd::sub(t1, nb);
+  const T wpn = Fd::add(t1, nb);
+  x3 = Fd::sub(Fd::mul(t3, wmn), Fd::mul(t4, bv));
+  y3 = Fd::add(Fd::mul(wpn, wmn), Fd::mul(m, bv));
+  z3 = Fd::add(Fd::mul(t4, wpn), Fd::mul(t3, m));
+}

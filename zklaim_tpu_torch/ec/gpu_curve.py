@@ -10,6 +10,9 @@ On a CUDA tensor each call is one K4 or K5 launch, and a build or launch
 that fails raises; on a CPU tensor it runs `point_add_plain` /
 `point_double_plain`, the plain versions (curve.point_add,
 curve.point_double).
+
+`scalar_mul` is the counterpart of jaxcurve.scalar_mul on planes: the
+batched double-and-add ladder, each step one K5, one K4 and a select.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from .. import kernels as K
+from ..ff.limbs import LIMB_BITS, NUM_LIMBS
 from . import curve as C
 
 
@@ -83,3 +87,21 @@ def point_double_planes(deg: int, p: torch.Tensor) -> torch.Tensor:
                  p.data_ptr(), p.stride(0), p.stride(1),
                  out.data_ptr(), out.stride(0), out.stride(1), n)
     return out
+
+
+def scalar_mul(deg: int, planes: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor:
+    """Batched double-and-add: scalars[i] * point[i] -> (3 deg, 16, n) planes.
+
+    planes: (3 deg, 16, n) points; scalars: (n, 16) plain-domain (NOT
+    Montgomery) int32 limbs.  256 steps, MSB first, the dataflow of
+    jaxcurve.scalar_mul: double (K5), add the point (K4), keep the sum where
+    the scalar's bit is set."""
+    n = planes.shape[2]
+    if scalars.shape != (n, NUM_LIMBS):
+        raise ValueError(f"scalar_mul: {n} points with scalars {tuple(scalars.shape)}")
+    acc = C.infinity_planes(deg, n, planes.device)
+    for bit_index in range(255, -1, -1):
+        bit = (scalars[:, bit_index // LIMB_BITS] >> (bit_index % LIMB_BITS)) & 1
+        acc = point_double_planes(deg, acc)
+        acc = torch.where(bit == 1, point_add_planes(deg, acc, planes), acc)
+    return acc

@@ -29,8 +29,6 @@ import hashlib
 import random
 import time
 
-import torch
-
 from . import kernels as K
 from . import resolve_device
 from .claims.circuit import (
@@ -40,6 +38,7 @@ from .claims.circuit import (
 from .gadgets.compare import comparison
 from .groth16.api import prove, setup, verify
 from .r1cs.system import ONE, ConstraintSystem
+from .utils.profiling import sync as _sync
 
 _U64 = 1 << 64
 
@@ -126,11 +125,6 @@ class _CredentialWorkload:
         witness = self.circuit.witness([(pre, refs, ops) for pre, _, refs, ops in payloads])
         primary = public_inputs_for([(h, refs, ops) for _, h, refs, ops in payloads])
         return witness, primary
-
-
-def _sync(device) -> None:
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def run_main_path(device=None, num_payloads: int = 1, requests: int = 3, seed: int = 0,

@@ -190,7 +190,7 @@ def mont_mul_plain(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.T
     """Montgomery product abR^{-1} mod p; (..., 16) int32 canonical in/out.
 
     Plain PyTorch version of kernel K1 (and of the in-kernel multiply of
-    K2-K4).  Broadcasts a against b.
+    K2-K6, K8, K9).  Broadcasts a against b.
     """
     a, b = torch.broadcast_tensors(a, b)
     return _out(_limbs(_mont_mul_lm(spec, _lm(a), _lm(b))))

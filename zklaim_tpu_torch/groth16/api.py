@@ -151,18 +151,42 @@ def witness_plain_limbs(witness) -> np.ndarray:
     return ints_to_limbs(witness)
 
 
-def h_plain(qap: QAP, w_plain: torch.Tensor, witness=None) -> torch.Tensor:
+def h_plain(qap: QAP, w_plain: torch.Tensor, witness=None,
+            what: str = "unsatisfied constraint") -> torch.Tensor:
     """Plain witness limbs -> plain H coefficients (m - 1, 16).
 
-    Raises ValueError (before any MSM) if the witness does not satisfy
-    the constraints: mont_mul(<A_j,w>, <B_j,w>) != <C_j,w> on some row."""
+    Raises ValueError(f"{what}: <first unsatisfied constraint>") before any
+    MSM if the witness does not satisfy the constraints:
+    mont_mul(<A_j,w>, <B_j,w>) != <C_j,w> on some row."""
     w_mont = M.to_mont(FR, w_plain)
     evals = qap.constraint_evals(w_mont)
     a_ev, b_ev, c_ev = evals
     if bool((M.mont_mul(FR, a_ev, b_ev) != c_ev).any()):
         where = qap.cs.first_unsatisfied(witness) if qap.cs is not None else None
-        raise ValueError(f"unsatisfied constraint: {where}")
+        raise ValueError(f"{what}: {where}")
     return M.from_mont(FR, qap.h_coefficients(evals))[: qap.m - 1]
+
+
+def prove_sums(pk: ProvingKey, w_plain: torch.Tensor, h: torch.Tensor, msm_c: int = 8):
+    """The prover's five Pippenger sums, launched back to back with no
+    synchronisation: ((3, 16, 4) G1 planes of the A, B1, H and L sums,
+    (6, 16, 1) G2 planes of the B2 sum)."""
+    aux_plain = w_plain[pk.num_primary + 1 :]
+    g1 = msm_many(1, [(pk.a_g1, w_plain), (pk.b_g1, w_plain), (pk.h_g1, h),
+                      (pk.l_g1, aux_plain)], msm_c)
+    return g1, msm_pow2(2, pk.b_g2, w_plain, msm_c)
+
+
+def finish_proof(pk: ProvingKey, g1: torch.Tensor, g2: torch.Tensor, r: int, s: int) -> Proof:
+    """Host finish: the five sums as CurvePoints, blinded by (r, s)."""
+    ev_a, ev_b1, ev_h, ev_l = C.planes_to_host_points(1, g1)
+    ev_b2 = C.planes_to_host_points(2, g2)[0]
+
+    a_pt = pk.alpha_g1 + ev_a + pk.delta_g1 * r
+    b2_pt = pk.beta_g2 + ev_b2 + pk.delta_g2 * s
+    b1_pt = pk.beta_g1 + ev_b1 + pk.delta_g1 * s
+    c_pt = ev_l + ev_h + a_pt * s + b1_pt * r - pk.delta_g1 * (r * s % R)
+    return Proof(a=a_pt, b=b2_pt, c=c_pt)
 
 
 def prove(pk: ProvingKey, qap: QAP, witness, rng, msm_c: int = 8) -> Proof:
@@ -173,19 +197,7 @@ def prove(pk: ProvingKey, qap: QAP, witness, rng, msm_c: int = 8) -> Proof:
 
     w_plain = to_tensor(witness_plain_limbs(witness), qap.device)
     h = h_plain(qap, w_plain, witness)
-
-    aux_plain = w_plain[pk.num_primary + 1 :]
-    g1 = msm_many(1, [(pk.a_g1, w_plain), (pk.b_g1, w_plain), (pk.h_g1, h),
-                      (pk.l_g1, aux_plain)], msm_c)
-    g2 = msm_pow2(2, pk.b_g2, w_plain, msm_c)
-    ev_a, ev_b1, ev_h, ev_l = C.planes_to_host_points(1, g1)
-    ev_b2 = C.planes_to_host_points(2, g2)[0]
-
-    a_pt = pk.alpha_g1 + ev_a + pk.delta_g1 * r
-    b2_pt = pk.beta_g2 + ev_b2 + pk.delta_g2 * s
-    b1_pt = pk.beta_g1 + ev_b1 + pk.delta_g1 * s
-    c_pt = ev_l + ev_h + a_pt * s + b1_pt * r - pk.delta_g1 * (r * s % R)
-    return Proof(a=a_pt, b=b2_pt, c=c_pt)
+    return finish_proof(pk, *prove_sums(pk, w_plain, h, msm_c), r, s)
 
 
 def verify(vk: VerifyingKey, primary: list, proof: Proof) -> bool:

@@ -1,11 +1,11 @@
-"""Build, load and launch the hand-written CUDA kernels (K1-K5).
+"""Build, load and launch the hand-written CUDA kernels (K1-K9).
 
 The sources in ../csrc are compiled with ONE nvcc call into a shared
 library with a plain C interface, at first use, and loaded with ctypes:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -Xptxas -v -o build/kernels/libzklaim_kernels-<key>.so
-         csrc/mont_mul.cu csrc/ntt.cu csrc/curve.cu
+         csrc/mont_mul.cu csrc/ntt.cu csrc/curve.cu csrc/probes.cu
 
 <key> hashes the sources and flags, so an edited source rebuilds and a
 fresh checkout builds everything on its first launch.  Nothing here
@@ -31,8 +31,8 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("mont_mul.cu", "ntt.cu", "curve.cu")
-HEADERS = ("field.cuh",)
+SOURCES = ("mont_mul.cu", "ntt.cu", "curve.cu", "probes.cu")
+HEADERS = ("field.cuh", "rcb.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -49,7 +49,15 @@ KERNELS = {
     "ntt_stage": ("zk_ntt_stage", [_P, _I64, _P, _I64, _I]),
     "point_add": ("zk_point_add", [_I, _P, _I64, _I64, _P, _I64, _I64, _P, _I64, _I64, _I64]),
     "point_double": ("zk_point_double", [_I, _P, _I64, _I64, _P, _I64, _I64, _I64]),
+    # the probes of the measuring path (csrc/probes.cu)
+    "mont_chain": ("zk_mont_chain", [_P, _I64, _P, _I64, _I64, _I]),
+    "op_chain": ("zk_op_chain", [_I, _P, _P, _I64, _I]),
+    "point_add_tiled": ("zk_point_add_tiled", [_P, _I64, _I64, _P, _I64, _I64, _P, _I64, _I64, _I64, _I64]),
+    "point_add_chain": ("zk_point_add_chain", [_P, _I64, _I64, _P, _I64, _I64, _I64, _I]),
 }
+# the kernels the proving paths run, and the probes only the measuring path runs
+PATH_KERNELS = ("mont_mul", "ntt_local", "ntt_stage", "point_add", "point_double")
+PROBE_KERNELS = ("mont_chain", "op_chain", "point_add_tiled", "point_add_chain")
 
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 BUILD_INFO: dict = {}

@@ -1,9 +1,15 @@
-"""Kernel-versus-plain cases at the main path's shapes.
+"""Kernel-versus-plain cases at the shapes the paths give the kernels.
 
 Each Case holds a kernel call and the plain PyTorch version of the same
 function on the same inputs, made from a numpy seed.  The card tests
 (tests/test_torch_kernels_cuda.py) and chip_smoke.py run them: the two
-results must be equal limb for limb (integer arithmetic: tolerance 0).
+results must be equal, tolerance 0: limb for limb (integer arithmetic), and
+bit for bit for the probe K7's f32fma, whose plain version takes each step
+in float64, where it is exact, and rounds once to float32 as the fused
+multiply-add does.  The probes K6-K9 run at their originals' shapes and at
+small chain lengths K (the plain versions cannot run the originals' K of up
+to 120,000 steps); K6 also at the width that fills the card, the shape whose
+rate tools/mont_micro.py reports.
 
 Inputs: random field elements below p; random curve points as host
 multiples of the generator (a small pool, gathered to the lane count),
@@ -23,6 +29,18 @@ The data sheet lists no int32 peak for the H100.  Hopper issues int32 on
 half of its FP32 lanes, so the rate is taken as the FP32 peak of
 67 TFLOP/s, over 2 (an FMA counts as two operations), over 2 again:
 16.75e12 multiply-adds per second at the card's full 700 W limit.
+tools/mont_micro.py measures the rate the card sustains.
+
+K7's steps are no Montgomery products, so its cases count single operations
+(`ops`) over the rate at which the card starts them, LANE_CLOCKS_PER_S: 132 SMs
+of 128 lanes, one instruction a lane a clock, which is the data sheet's
+67 TFLOP/s / 2 = 33.5e12 a second.  An integer step is two operations
+(the logic op and the add or multiply, which go to different pipes and so
+share nothing but the issue slots); an f32fma step is one.  tools/
+pallas_op_micro.py measured 15.2e12 integer steps a second (NVIDIA H100 80GB
+HBM3, 700.00 W), 91 % of this bound and more than INT32_MAD_PER_S would allow: that constant is kept for
+the Montgomery products alone.  K7's elements are 4 bytes, counted in
+`extra_bytes`.
 """
 
 from __future__ import annotations
@@ -44,7 +62,8 @@ from ..ntt.radix2 import get_domain
 
 
 HBM_BYTES_PER_S = 3.35e12
-INT32_MAD_PER_S = 67e12 / 2 / 2
+LANE_CLOCKS_PER_S = 67e12 / 2             # operations started: the FP32 FMA peak
+INT32_MAD_PER_S = LANE_CLOCKS_PER_S / 2
 FE_BYTES = 64
 MADS_PER_PRODUCT = 8 * (8 + 1 + 8)
 # Fq products per lane: K4 has 12 field products, K5 has 8; over Fq2 each is
@@ -62,13 +81,18 @@ class Case:
     plain: Callable[[], torch.Tensor]  # the plain version, same inputs
     elements_moved: int                # field elements read once + written once
     products: int                      # Montgomery products of the call
+    ops: int = 0                       # other operations of the call (K7), over LANE_CLOCKS_PER_S
+    extra_bytes: int = 0               # bytes moved that are no field elements
 
 
-def bound_ms(case: Case) -> tuple[float, str]:
+def bound_ms(case: Case, mad_per_s: float = INT32_MAD_PER_S) -> tuple[float, str]:
     """(least milliseconds the card could take for the case's work, the
-    side that sets it: "bytes" or "operations")."""
-    by_bytes = case.elements_moved * FE_BYTES / HBM_BYTES_PER_S * 1e3
-    by_ops = case.products * MADS_PER_PRODUCT / INT32_MAD_PER_S * 1e3
+    side that sets it: "bytes" or "operations").  mad_per_s: the 32-bit
+    multiply-add rate to hold the products against (default: the assumed
+    peak; chip_smoke.py also passes the rate K6 measured)."""
+    by_bytes = (case.elements_moved * FE_BYTES + case.extra_bytes) / HBM_BYTES_PER_S * 1e3
+    by_ops = (case.products * MADS_PER_PRODUCT / mad_per_s
+              + case.ops / LANE_CLOCKS_PER_S) * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
@@ -120,9 +144,9 @@ def curve_inputs(deg: int, n: int, rng: np.random.Generator, device):
 
 def kernel_cases(device, n_field: int = 1 << 15, n_ntt: int = 1 << 15,
                  n_g1: int = 1 << 16, n_g2: int = 1 << 15, seed: int = 0) -> list:
-    """The five kernels at the given widths (defaults: the main path's;
-    the doubling also at the MSM finish's own widths, 4 G1 lanes and 1 G2
-    lane)."""
+    """The five kernels of the proving paths at the given widths (defaults:
+    the main path's; the doubling also at the MSM finish's own widths, 4 G1
+    lanes and 1 G2 lane), then the four probes (probe_cases)."""
     rng = np.random.default_rng(seed)
     cases = []
     for spec in (FR, FQ):
@@ -166,11 +190,63 @@ def kernel_cases(device, n_field: int = 1 << 15, n_ntt: int = 1 << 15,
                           lambda d=deg, p=p: G.point_double_planes(d, p),
                           lambda d=deg, p=p: G.point_double_plain(d, p),
                           6 * deg * n, DOUBLE_PRODUCTS[deg] * n))
+    return cases + probe_cases(device, rng)
+
+
+def probe_cases(device, rng: np.random.Generator, k_mont: int = 16, k_op: int = 16,
+                k_add: int = 5, n_tiled: int | None = None, wide_lanes: int | None = None,
+                k_wide: int = 2) -> list:
+    """The probes K6-K9 at their originals' shapes and small chain lengths,
+    K6 also at the card's width (wide_lanes, default mont_micro.WIDE_LANES).
+
+    Work of a call: K6 k products a lane; K7 k steps an element (see the
+    module docstring); K8 as K4; K9 12 k products a lane."""
+    from ..tools import grid_micro, mont_micro, padd_micro, pallas_op_micro
+
+    cases = []
+    for lanes, k in ((mont_micro.LANES, k_mont), (wide_lanes or mont_micro.WIDE_LANES, k_wide)):
+        base = random_field(FQ, min(lanes, 1 << 14), rng, device)      # tiled above 2^14 lanes
+        x = base.repeat(-(-lanes // base.shape[0]), 1)[:lanes].t().contiguous()
+        cases.append(Case("mont_chain", f"K6 mont_chain Fq lanes={lanes} K={k}",
+                          lambda x=x, k=k: mont_micro.mont_chain(x, k),
+                          lambda x=x, k=k: mont_micro.mont_chain_plain(x, k),
+                          2 * lanes, k * lanes))
+
+    rows, cols = pallas_op_micro.ROWS, pallas_op_micro.COLS
+    for op in ("u32mul", "u32add", "u16mul", "f32fma"):
+        fma = op == "f32fma"
+        v = pallas_op_micro.probe_input(op, cols, device, int(rng.integers(1 << 30)))
+        cases.append(Case("op_chain", f"K7 op_chain {op} ({rows}, {cols}) K={k_op}",
+                          lambda op=op, v=v: pallas_op_micro.op_chain(op, v, k_op),
+                          lambda op=op, v=v: pallas_op_micro.op_chain_plain(op, v, k_op),
+                          0, 0, ops=(1 if fma else 2) * k_op * v.numel(),
+                          extra_bytes=2 * 4 * v.numel()))
+
+    n = n_tiled or grid_micro.N
+    p, q = curve_inputs(1, n, rng, device)
+    for tile in dict.fromkeys(min(t, n) for t in grid_micro.TILES):
+        cases.append(Case("point_add_tiled", f"K8 point_add_tiled G1 n={n} tile={tile}",
+                          lambda t=tile: grid_micro.point_add_tiled(p, q, t),
+                          lambda t=tile: grid_micro.point_add_tiled_plain(p, q, t),
+                          9 * n, ADD_PRODUCTS[1] * n))
+
+    lanes = padd_micro.LANES
+    pt = random_points(1, lanes, rng, device)
+    cases.append(Case("point_add_chain", f"K9 point_add_chain G1 lanes={lanes} K={k_add}",
+                      lambda: padd_micro.point_add_chain(pt, k_add),
+                      lambda: padd_micro.point_add_chain_plain(pt, k_add),
+                      6 * lanes, ADD_PRODUCTS[1] * k_add * lanes))
     return cases
 
 
-def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
-    """Largest limb difference (0 when the two results are identical)."""
-    if a.shape != b.shape:
-        raise ValueError(f"shape mismatch {tuple(a.shape)} vs {tuple(b.shape)}")
-    return int((a.long() - b.long()).abs().max().item()) if a.numel() else 0
+def max_abs_err(a: torch.Tensor, b: torch.Tensor):
+    """Largest difference of two results (0 when they are identical): an int
+    for limbs and bit patterns, a float for float32 results."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        raise ValueError(f"mismatch {tuple(a.shape)} {a.dtype} vs {tuple(b.shape)} {b.dtype}")
+    if not a.numel():
+        return 0
+    if a.is_floating_point():
+        return float((a.double() - b.double()).abs().max().item())
+    return int((a.long() - b.long()).abs().max().item())
+

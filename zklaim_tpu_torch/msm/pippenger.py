@@ -25,19 +25,25 @@ gpu_curve.point_double_planes (kernel K5 on CUDA); on CPU tensors both run
 their plain versions.  The finish has the JAX package's dataflow
 (jaxcurve.point_double, then point_add), so where the flat pipeline runs
 on both sides the finished point matches it projectively, limb for limb.
-The XLA-compile workaround msm_ladder is not ported: every N runs the
-flat pipeline.
+
+msm is the JAX package's dispatcher: N <= ZKLAIM_MSM_LADDER_MAX (default
+512) goes to msm_ladder, a batched 256-step double-and-add and a halving
+fold, larger N to the flat pipeline.  The prover calls msm_many / msm_pow2
+directly, so every N of a proof runs the flat pipeline.
 """
 
 from __future__ import annotations
 
+import os
 from functools import lru_cache
 
 import numpy as np
 import torch
 
 from ..ec import curve as C
-from ..ec.gpu_curve import point_add_halves, point_add_planes, point_double_planes
+from ..ec.gpu_curve import (
+    point_add_halves, point_add_planes, point_double_planes, scalar_mul,
+)
 from ..ff import montgomery as M
 from ..ff.limbs import LIMB_BITS, NUM_LIMBS
 from ..ff.montgomery import FQ
@@ -99,7 +105,7 @@ def infinity_rows(deg: int, n: int, device) -> torch.Tensor:
     return C.planes_to_rows(C.infinity_planes(deg, n, device))
 
 
-def _window_partials(deg: int, tables: list, c: int):
+def _window_partials(deg: int, tables: list, c: int, mark=None):
     """Flat-batch bucket phase: per-window (F(t_B), sum_{b<B} F(t_b)).
 
     tables: k pairs (rows (n, 48 deg) packed projective points, scalars
@@ -107,11 +113,15 @@ def _window_partials(deg: int, tables: list, c: int):
     sums share one flat batch: window w of sum i is window i*W + w.
     Returns (tot_w, head_w), each (3 deg, 16, k*W) planes.  Both are
     group-linear in the points, so chunks may be summed before the finish.
+    mark(name), where given, is called at the end of each stage (digits,
+    sort, gather, upsweep, tails, abel): tools.msm_stages times them with it.
     """
+    mark = mark or (lambda name: None)
     k = len(tables)
     n = tables[0][0].shape[0]
     dev = tables[0][0].device
     digits = torch.cat([signed_digits(s, c) for _, s in tables]).long()   # (k W, n)
+    mark("digits")
     KW = digits.shape[0]
     W = KW // k
     B = 1 << (c - 1)
@@ -132,12 +142,15 @@ def _window_partials(deg: int, tables: list, c: int):
                       src + torch.where(digits < 0, k * n, 0)).reshape(-1)
     skeys, perm = torch.sort(keys, stable=True)
     sidx = idx[perm]
+    mark("sort")
 
     # bit-reversed storage: every upsweep level pairs contiguous halves
     sidx_br = sidx[torch.from_numpy(_bitrev_np(nb)).to(dev)]
     levels = [C.rows_to_planes(table.index_select(0, sidx_br))]
+    mark("gather")
     while levels[-1].shape[-1] > 1:
         levels.append(point_add_halves(deg, levels[-1]))
+    mark("upsweep")
 
     # global prefixes at every bucket tail: t_{w,b} = last sorted index
     # with key <= w*(B+1)+b; block j of level t lives at rev_{nb-t}(j)
@@ -151,6 +164,7 @@ def _window_partials(deg: int, tables: list, c: int):
         node = lvl.index_select(2, store)
         bit = ((m >> t) & 1) == 1
         acc = torch.where(bit, point_add_planes(deg, acc, node), acc)
+    mark("tails")
 
     # Abel summation per window (window-start corrections cancel):
     # B*F(t_{w,B}) - sum_{b<B} F(t_{w,b})
@@ -159,6 +173,7 @@ def _window_partials(deg: int, tables: list, c: int):
     heads = grid[..., :B].transpose(2, 3).reshape(3 * deg, NUM_LIMBS, B * KW)
     while heads.shape[-1] > KW:                               # b-major, window-minor
         heads = point_add_halves(deg, heads)
+    mark("abel")
     return tot_w, heads
 
 
@@ -242,3 +257,34 @@ def msm_pow2(deg: int, rows: torch.Tensor, scalars: torch.Tensor, c: int = 8) ->
     """sum_i scalars[i] * P_i -> (3 deg, 16, 1) projective planes (msm_many
     with one sum)."""
     return msm_many(deg, [(rows, scalars)], c)
+
+
+def _ladder_max() -> int:
+    """Largest point count that msm routes to msm_ladder."""
+    return int(os.environ.get("ZKLAIM_MSM_LADDER_MAX", "512"))
+
+
+def msm_ladder(deg: int, rows: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor:
+    """Small-N MSM -> (3 deg, 16, 1) planes: scalars[i] * P_i for all lanes
+    at once (gpu_curve.scalar_mul), then a halving fold over the lanes,
+    padded with infinity to a power of two.  Lane 0 of every level is the
+    sum jaxcurve's rolled fold leaves there.  No size requirement; slower a
+    point than the flat pipeline."""
+    per = scalar_mul(deg, C.rows_to_planes(rows), scalars)
+    n = per.shape[2]
+    n2 = max(1, 1 << (n - 1).bit_length())
+    if n2 != n:
+        per = torch.cat([per, C.infinity_planes(deg, n2 - n, per.device)], dim=2)
+    while per.shape[2] > 1:
+        per = point_add_halves(deg, per)
+    return per
+
+
+def msm(deg: int, rows: torch.Tensor, scalars: torch.Tensor, c: int = 8) -> torch.Tensor:
+    """Multi-scalar multiplication sum_i scalars[i] * P_i -> (3 deg, 16, 1)
+    planes.  rows: (N, 48 deg) packed projective points; scalars: (N, 16)
+    plain-domain Fr limbs.  N <= ZKLAIM_MSM_LADDER_MAX (default 512) uses
+    the ladder, larger N the flat Pippenger pipeline (msm_pow2)."""
+    if rows.shape[0] <= _ladder_max():
+        return msm_ladder(deg, rows, scalars)
+    return msm_pow2(deg, rows, scalars, c)

@@ -6,6 +6,12 @@ Z_H(g)^{-1}).  A transform takes AoS (n, 16) Montgomery limbs: a bit-
 reversal index_select, one transpose to (16, n) SoA planes, the butterfly
 stages of gpu_ntt (K2 + K3 on CUDA), one transpose back.  The n^{-1}
 scale and the coset shifts are mont_mul calls (K1 on CUDA).
+
+The four tables of n powers (twiddles, inverse twiddles, coset powers and
+their inverses) are built on the domain's device (`_device_powers`: log2(n)
+doubling steps through mont_mul), where a host loop over n Python ints
+would take minutes at n = 2^22.  They equal the JAX package's host-built
+tables limb for limb.
 """
 
 from __future__ import annotations
@@ -26,11 +32,26 @@ def _mont(vals) -> np.ndarray:
     return ints_to_limbs([v * (1 << 256) % R for v in vals])
 
 
-def _powers(x: int, count: int) -> list:
-    out = [1]
-    for _ in range(count - 1):
-        out.append(out[-1] * x % R)
-    return out
+def _device_powers(x: int, count: int, device) -> torch.Tensor:
+    """(count, 16) Montgomery limbs of x^0 .. x^(count-1), by doubling:
+    pw[2^j : 2^(j+1)] = pw[0 : 2^j] * x^(2^j), one mont_mul a step."""
+    pw = torch.empty((count, 16), dtype=torch.int32, device=device)
+    pw[:1] = to_tensor(_mont([1]), device)
+    have = 1
+    while have < count:
+        step = to_tensor(_mont([pow(x, have, R)])[0], device)
+        take = min(have, count - have)
+        pw[have : have + take] = M.mont_mul(FR, pw[:take], step)
+        have += take
+    return pw
+
+
+def _stage_twiddles(half_powers: torch.Tensor, k: int) -> torch.Tensor:
+    """(n/2, 16) powers omega^j -> the flat (16, n - 1) twiddle planes: stage
+    s holds omega^(j n / 2^(s+1)), j < 2^s, every (n / 2^(s+1))-th power."""
+    half = half_powers.shape[0]
+    stages = [half_powers[:: max(1, half >> s)][: 1 << s] for s in range(k)]
+    return torch.cat(stages or [half_powers]).t().contiguous()     # n = 1: no stage
 
 
 class NTTDomain:
@@ -57,16 +78,11 @@ class NTTDomain:
 
         # flat SoA twiddle planes: stage s (m = 2^(s+1)) holds omega_m^j,
         # j < m/2, at offset 2^s - 1
-        tw, tw_inv = [], []
-        for s in range(k):
-            m = 1 << (s + 1)
-            tw += _powers(pow(self.omega, n // m, R), m // 2)
-            tw_inv += _powers(pow(self.omega_inv, n // m, R), m // 2)
-        self.tw_flat = to_tensor(_mont(tw).T, self.device)          # (16, n-1)
-        self.tw_inv_flat = to_tensor(_mont(tw_inv).T, self.device)
-
-        self.shift_pows = to_tensor(_mont(_powers(self.shift, n)), self.device)
-        self.shift_pows_inv = to_tensor(_mont(_powers(self.shift_inv, n)), self.device)
+        dev = self.device
+        self.tw_flat = _stage_twiddles(_device_powers(self.omega, n // 2, dev), k)     # (16, n-1)
+        self.tw_inv_flat = _stage_twiddles(_device_powers(self.omega_inv, n // 2, dev), k)
+        self.shift_pows = _device_powers(self.shift, n, dev)
+        self.shift_pows_inv = _device_powers(self.shift_inv, n, dev)
         self.n_inv_mont = to_tensor(_mont([self.n_inv])[0], self.device)
         zg = (pow(self.shift, n, R) - 1) % R
         self.z_coset_inv_mont = to_tensor(_mont([pow(zg, R - 2, R)])[0], self.device)

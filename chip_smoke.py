@@ -5,20 +5,27 @@
 
 1. Requires CUDA (exits non-zero without it) and prints the card's name
    and power limit.
-2. Builds the kernels K1-K9 from zklaim_tpu_torch/csrc with nvcc.
+2. Builds the kernels K1-K9 and the whole-loop entries mont_pow (K1) and
+   msm_finish (K5) from zklaim_tpu_torch/csrc with nvcc, the sources side by
+   side.
 3. Probes phase: the four probes of the measuring path
    (zklaim_tpu_torch.tools.mont_micro, pallas_op_micro, grid_micro,
    padd_micro: kernels K6-K9), each at its original's shape and at a width that
    fills the card; K6's wide row is the 32-bit multiply-add rate the card
    sustains.  K6-K9 must have launched.
-   Then holds each of the nine kernels against its plain PyTorch version on
-   the card, at the shapes its path gives it (K6 also at the width that
+   Then holds each of the eleven entries against its plain PyTorch version
+   on the card, at the shapes its path gives it (K6 also at the width that
    fills the card), limb for limb and, for K7's f32fma, bit for bit
    (tolerance 0 throughout: integer arithmetic, and a plain f32fma that
-   rounds once as the fused one does), times both with CUDA events and prints each
-   case's bound: the least time the card could take for the same work
-   (kernels/cases.py), against the assumed and against the measured
-   multiply-add rate.
+   rounds once as the fused one does).  Each case is timed twice: a call as
+   the paths make it (CUDA events around 20 wrapper calls: mostly the host's
+   time where the kernel is short) and the card's own time (the replay of a
+   CUDA graph that holds 10 captured calls, utils.profiling.device_ms); the
+   floor of a wrapper call, a product of ONE element, is printed once.  The
+   plain version is timed too (once where it takes seconds), and each case's
+   bound is printed: the least time the card could take for the same work
+   (kernels/cases.py), held against the device time, at the assumed and at
+   the measured multiply-add rate.
 4. Drives the Groth16 path below the credential layer on ZKlaimCircuit(1)
    (entry.run_main_path): one trusted setup, three proofs of different
    payloads, each verified by the host verifier; an unsatisfied predicate
@@ -31,7 +38,10 @@
    way the flow must fail, each by its status code.  Prints the roles'
    seconds, the byte sizes, the peak device memory and the launch counts.
    For each of the two paths the launch counts are set to 0 just before and
-   read just after, and each of K1-K5 must have launched.
+   read just after.  A proof must launch mont_mul, ntt_local, ntt_stage,
+   point_add and msm_finish (one msm_finish a finish: 2 a proof_generate)
+   and no point_double; the credential path's trusted_setup must launch
+   mont_pow, once a batched inversion.
 6. Holds the card against the CPU on the small circuit: the same seed must
    give the same proving key, verifying key and proof on both devices, as
    tensors and as serde bytes, and pk_from_bytes(pk_to_bytes(pk)) must
@@ -39,9 +49,10 @@
 7. Bench phase: zklaim_tpu_torch.bench.bench_all on the card -- G1 and G2
    MSM and Fr NTT at 2^16 / 2^20 / 2^22 points, the prover rows through
    claims.api.Context, batched proving of 8 -- every row printed with its
-   peak device memory; K1-K5 must have launched.  Checks: the flat MSM
-   equals msm_ladder on a 2^10 prefix (G1 and G2); intt(ntt(x)) = x at 2^16;
-   every proof of a batched_prove verifies.
+   peak device memory.  Checks: the flat MSM equals msm_ladder on a 2^10
+   prefix (G1 and G2), which is where point_double (K5) runs; intt(ntt(x)) =
+   x at 2^16; every proof of a batched_prove verifies.  The six kernels of
+   the paths and point_double must have launched.
 8. The phase splits of prove and setup (tools.prove_profile,
    tools.setup_profile) and of one MSM pass (tools.msm_stages), printed.
 9. Asserts that no jax module and no module of the JAX package was loaded.
@@ -69,12 +80,30 @@ KERNEL_ROWS = {
     "ntt_stage": ("zklaim_tpu_torch/csrc/ntt.cu", "zklaim_tpu/ntt/pallas_ntt.py:152"),
     "point_add": ("zklaim_tpu_torch/csrc/curve.cu", "zklaim_tpu/ec/pallas_curve.py:222"),
     "point_double": ("zklaim_tpu_torch/csrc/curve.cu", "zklaim_tpu/ec/pallas_curve.py:233"),
+    "mont_pow": ("zklaim_tpu_torch/csrc/mont_mul.cu",
+                 "zklaim_tpu/ntt/pallas_ntt.py:63 in the loop of zklaim_tpu/ff/montgomery.py:236"),
+    "msm_finish": ("zklaim_tpu_torch/csrc/curve.cu",
+                   "zklaim_tpu/ec/pallas_curve.py:233 and :222 in the loops of "
+                   "zklaim_tpu/msm/pippenger.py:366"),
     "mont_chain": ("zklaim_tpu_torch/csrc/probes.cu", "tools/mont_micro.py:22"),
     "op_chain": ("zklaim_tpu_torch/csrc/probes.cu", "tools/pallas_op_micro.py:27"),
     "point_add_tiled": ("zklaim_tpu_torch/csrc/probes.cu", "tools/grid_micro.py:25"),
     "point_add_chain": ("zklaim_tpu_torch/csrc/probes.cu", "tools/padd_micro.py:24"),
 }
 TABLES = ("a_g1", "b_g1", "b_g2", "h_g1", "l_g1")
+
+
+def _timed_once(fn):
+    """(fn(), its milliseconds on the card): one call between CUDA events."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def _ms(fn, reps: int) -> float:
@@ -99,6 +128,12 @@ def _require_launched(launches: dict, path: str, kernels) -> None:
         raise AssertionError(f"kernels never launched on {path}: {missing}")
 
 
+def _require_not_launched(launches: dict, path: str, kernels) -> None:
+    ran = {k: launches[k] for k in kernels if launches.get(k, 0)}
+    if ran:
+        raise AssertionError(f"kernels that {path} must not launch: {ran}")
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import numpy as np
@@ -110,6 +145,7 @@ def main() -> None:
     from zklaim_tpu_torch.claims import serde
     from zklaim_tpu_torch.ec import curve as C
     from zklaim_tpu_torch.entry import run_credential_path, run_main_path, tiny_circuit
+    from zklaim_tpu_torch.ff import montgomery as M
     from zklaim_tpu_torch.groth16.api import prove, setup
     from zklaim_tpu_torch import bench
     from zklaim_tpu_torch.groth16.api import verify
@@ -123,6 +159,7 @@ def main() -> None:
         grid_micro, mont_micro, msm_stages, padd_micro, pallas_op_micro, prove_profile,
         setup_profile,
     )
+    from zklaim_tpu_torch.utils.profiling import device_ms
 
     name = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
@@ -149,8 +186,8 @@ def main() -> None:
     # -- 3a. probes phase: K6-K9 through their tools ------------------------
     dev = torch.device("cuda:0")
     rows = {k: {"name": k, "route": "cuda", "source": s, "replaces": r, "launches": 0,
-                "max_abs_err": 0, "ms": None, "plain_ms": None, "bound_ms": None,
-                "bound_by": None, "library_ms": None}
+                "max_abs_err": 0, "ms": None, "device_ms": None, "plain_ms": None,
+                "bound_ms": None, "bound_by": None, "library_ms": None}
             for k, (s, r) in KERNEL_ROWS.items()}
     torch.cuda.synchronize()
     K.reset_launches()
@@ -173,28 +210,39 @@ def main() -> None:
           f"{INT32_MAD_PER_S / 1e12:.2f} T/s", flush=True)
 
     # -- 3b. kernel vs plain at the paths' shapes ----------------------------
+    one = torch.zeros((1, 16), dtype=torch.int32, device=dev)
+    record["wrapper_floor_ms"] = _ms(lambda: M.mont_mul(M.FR, one, one), 200)
+    print(f"[{card}] floor of a wrapper call (mont_mul on one element, CUDA events around 200 "
+          f"calls): {record['wrapper_floor_ms']:.4f} ms", flush=True)
     record["cases"] = []
     for case in kernel_cases(dev, seed=SEED):
-        got, want = case.run(), case.plain()
+        if case.plain_once:              # seconds a call: the comparison's own run is the timing
+            got = case.run()
+            want, plain_ms = _timed_once(case.plain)
+        else:
+            got, want = case.run(), case.plain()
+            plain_ms = _ms(case.plain, 3)
         torch.cuda.synchronize()
         err = max_abs_err(got, want)
-        ms, plain_ms = _ms(case.run, 20), _ms(case.plain, 3)
+        ms, dev_ms = _ms(case.run, 20), device_ms(case.run)
         bound, bound_by = bound_ms(case)
         bound_m, bound_m_by = bound_ms(case, measured_mads)
-        print(f"[{card}] {case.label}: max_abs_err {err}, kernel {ms:.4f} ms, "
+        print(f"[{card}] {case.label}: max_abs_err {err}, call {ms:.4f} ms, device {dev_ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms, bound {bound:.4g} ms by {bound_by} "
-              f"({100 * bound / ms:.2f} % of the kernel's time); at the measured multiply-add "
-              f"rate {bound_m:.4g} ms by {bound_m_by} ({100 * bound_m / ms:.2f} %)", flush=True)
+              f"({100 * bound / dev_ms:.2f} % of the device time); at the measured multiply-add "
+              f"rate {bound_m:.4g} ms by {bound_m_by} ({100 * bound_m / dev_ms:.2f} %)", flush=True)
         record["cases"].append({"label": case.label, "max_abs_err": err,
-                                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-                                "bound_by": bound_by, "bound_measured_rate_ms": bound_m,
+                                "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                                "bound_ms": bound, "bound_by": bound_by,
+                                "bound_measured_rate_ms": bound_m,
                                 "bound_measured_rate_by": bound_m_by})
         if err != 0:
             raise AssertionError(f"{case.label}: kernel disagrees with plain version")
         row = rows[case.kernel]
         row["max_abs_err"] = max(row["max_abs_err"], err)
         if row["ms"] is None:           # the first case of a kernel is its headline
-            row.update(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by)
+            row.update(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound,
+                       bound_by=bound_by)
 
     # -- 4. the Groth16 path below the credential layer ----------------------
     torch.cuda.synchronize()
@@ -219,8 +267,9 @@ def main() -> None:
         raise AssertionError("an unsatisfied predicate was proved")
     if not res["wrong_input_rejected"]:
         raise AssertionError("a proof verified against a wrong public input")
-    _require_launched(launches, "run_main_path", K.PATH_KERNELS)
-    for k in K.PATH_KERNELS:
+    _require_launched(launches, "run_main_path", K.PROOF_KERNELS)
+    _require_not_launched(launches, "run_main_path", ("point_double",))
+    for k in K.PATH_KERNELS + ("point_double",):
         rows[k]["launches_run_main_path"] = launches[k]
 
     # -- 5. the credential path through claims.api.Context -------------------
@@ -253,8 +302,16 @@ def main() -> None:
     if cred["status"]["verify"] != [0, 0, 0]:
         raise AssertionError(f"three verified proofs expected: {cred['status']['verify']}")
     _require_launched(launches, "run_credential_path", K.PATH_KERNELS)
-    _require_launched(cred["reprove_launches"], "proof_generate", K.PATH_KERNELS)
-    for k in K.PATH_KERNELS:
+    _require_launched(cred["reprove_launches"], "proof_generate", K.PROOF_KERNELS)
+    _require_launched(cred["trusted_setup_launches"], "trusted_setup", ("mont_pow",))
+    _require_not_launched(launches, "run_credential_path", ("point_double",))
+    if cred["trusted_setup_launches"]["mont_mul"] > 100:
+        raise AssertionError(f"trusted_setup: the inversions' squarings are mont_pow's now, yet "
+                             f"mont_mul launched {cred['trusted_setup_launches']['mont_mul']} times")
+    if cred["reprove_launches"]["msm_finish"] != 2:
+        raise AssertionError(f"proof_generate: one msm_finish a finish, two finishes expected, "
+                             f"got {cred['reprove_launches']['msm_finish']}")
+    for k in K.PATH_KERNELS + ("point_double",):
         rows[k]["launches"] = launches[k]
         rows[k]["launches_proof_generate"] = cred["reprove_launches"][k]
         rows[k]["launches_trusted_setup"] = cred["trusted_setup_launches"][k]
@@ -296,16 +353,13 @@ def main() -> None:
     t0 = time.perf_counter()
     bench.bench_all(str(Path("build") / "bench_all.json"), dev)     # prints each row (stderr)
     torch.cuda.synchronize()
-    launches = dict(K.LAUNCHES)
     record["bench"] = json.loads((Path("build") / "bench_all.json").read_text())
     for row in record["bench"]:
         print(f"[{card}] bench {json.dumps(row)}")
-    print(f"[{card}] bench phase {time.perf_counter() - t0:.1f} s; launches {launches}", flush=True)
-    _require_launched(launches, "the bench phase", K.PATH_KERNELS)
+    print(f"[{card}] bench_all {time.perf_counter() - t0:.1f} s; launches {dict(K.LAUNCHES)}",
+          flush=True)
     if len(record["bench"]) != 18:
         raise AssertionError(f"bench_all gave {len(record['bench'])} rows, 18 expected")
-    for k in K.PATH_KERNELS:
-        rows[k]["launches_bench"] = launches[k]
 
     nrng = np.random.default_rng(SEED)
 
@@ -336,6 +390,13 @@ def main() -> None:
         raise AssertionError("a proof of batched_prove did not verify")
     print(f"[{card}] checks: flat MSM = msm_ladder on 2^10 points (G1, G2); intt(ntt(x)) = x "
           f"at 2^16; 3 proofs of batched_prove verify", flush=True)
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    print(f"[{card}] bench phase with its checks: launches {launches}", flush=True)
+    _require_launched(launches, "the bench phase", K.PATH_KERNELS + ("point_double",))
+    for k in K.PATH_KERNELS + ("point_double",):
+        rows[k]["launches_bench"] = launches[k]
+    rows["point_double"]["launches"] = launches["point_double"]     # its path is msm_ladder's
 
     # -- 8. phase splits of prove, setup and one MSM pass -------------------------
     record["prove_profile"] = prove_profile.measure(dev)

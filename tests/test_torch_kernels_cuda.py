@@ -1,4 +1,5 @@
-"""Kernels K1-K9 against their plain versions on the card (needs CUDA).
+"""Kernels K1-K9, mont_pow and msm_finish against their plain versions on the
+card (needs CUDA).
 
 Run on a machine with an NVIDIA GPU (no jax needed there, hence
 --noconftest):
@@ -53,8 +54,10 @@ def test_kernel_matches_plain_at_main_path_shapes(cases, kernel):
 
 
 def test_wrappers_reject_bad_operands(cuda):
-    from zklaim_tpu_torch.ec.gpu_curve import point_add_planes, point_double_planes
-    from zklaim_tpu_torch.ff.montgomery import FR, mont_mul
+    from zklaim_tpu_torch.ec.gpu_curve import (
+        msm_finish_planes, point_add_planes, point_double_planes,
+    )
+    from zklaim_tpu_torch.ff.montgomery import FR, mont_mul, mont_pow_bits, mont_pow_k1
 
     a = torch.zeros((4, 16), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError):
@@ -68,6 +71,85 @@ def test_wrappers_reject_bad_operands(cuda):
         point_double_planes(2, p)
     with pytest.raises(ValueError):
         point_double_planes(1, p.transpose(1, 2))
+    bits = [1, 0, 1]
+    for bad in (lambda: mont_pow_k1(FR, a.cpu(), bits), lambda: mont_pow_bits(FR, a.long(), bits),
+                lambda: mont_pow_bits(FR, a[:, :8], bits), lambda: mont_pow_bits(FR, a, [1] * 257),
+                lambda: mont_pow_bits(FR, a, [0, 3])):
+        with pytest.raises(ValueError):
+            bad()
+    t = torch.zeros((3, 16, 32), dtype=torch.int32, device=cuda)
+    for bad in (lambda: msm_finish_planes(1, t.cpu(), t.cpu(), 8, 1),      # CPU tensors
+                lambda: msm_finish_planes(1, t.long(), t.long(), 8, 1),    # wrong dtype
+                lambda: msm_finish_planes(2, t, t, 8, 1),                  # 3 planes are no G2 point
+                lambda: msm_finish_planes(1, t, t, 8, 2),                  # k W != lanes
+                lambda: msm_finish_planes(1, t, t[..., :16], 8, 1),        # partials differ
+                lambda: msm_finish_planes(1, t, t, 1, 1),                  # c = 1
+                lambda: msm_finish_planes(1, t, t, 5, 1),                  # c does not divide 16
+                lambda: msm_finish_planes(1, t.transpose(1, 2), t.transpose(1, 2), 8, 1),
+                lambda: msm_finish_planes(1, t.repeat(1, 1, 512), t.repeat(1, 1, 512), 8, 512)):
+        with pytest.raises(ValueError):                                    # last: shared memory
+            bad()
+
+
+def test_mont_mul_and_mont_pow_on_unaligned_and_strided_operands(cuda):
+    """K1 reads contiguous 16-byte-aligned operands as 16-byte vectors and
+    everything else through the strided scalar path, and never faults: a
+    slice that starts 4 bytes into a buffer, a broadcast constant and a
+    (16, n) plane view all equal the plain version."""
+    import numpy as np
+
+    from zklaim_tpu_torch.ff import montgomery as M
+    from zklaim_tpu_torch.kernels.cases import random_field
+
+    n = 1000
+    for spec in (M.FQ, M.FR):
+        a, b = (random_field(spec, n, np.random.default_rng(s), cuda) for s in (1, 2))
+        want = M.mont_mul_plain(spec, a, b)
+        buf = torch.zeros(n * 16 + 4, dtype=torch.int32, device=cuda)
+        off = buf[1 : 1 + n * 16].view(n, 16)
+        off.copy_(a)
+        assert off.data_ptr() % 16 == 4 and off.is_contiguous()
+        assert max_abs_err(M.mont_mul(spec, off, b), want) == 0
+        assert max_abs_err(M.mont_mul(spec, b, off), want) == 0
+        planes = a.t().contiguous()                                  # (16, n): limb stride n
+        assert max_abs_err(M.mont_mul(spec, planes.t(), b), want) == 0
+        const = b[5]
+        assert max_abs_err(M.mont_mul(spec, a, const), M.mont_mul_plain(spec, a, const)) == 0
+        assert max_abs_err(M.mont_mul(spec, off, const), M.mont_mul_plain(spec, a, const)) == 0
+        bits = spec.exp_p_minus_2_bits
+        inv = M.mont_pow_bits_plain(spec, a[:40], bits)
+        before = K.LAUNCHES["mont_pow"]
+        assert max_abs_err(M.mont_pow_bits(spec, a[:40], bits), inv) == 0
+        assert max_abs_err(M.mont_pow_bits(spec, off[:40], bits), inv) == 0          # unaligned
+        assert max_abs_err(M.mont_pow_bits(spec, planes.t()[:40], bits), inv) == 0   # copied
+        assert max_abs_err(M.mont_pow_bits(spec, a[:40].view(5, 8, 16), bits).view(40, 16), inv) == 0
+        assert K.LAUNCHES["mont_pow"] == before + 4                  # one launch a power
+        one = M.mont_pow_bits(spec, a[:40], [0, 0])
+        assert torch.equal(one, spec.const("one_mont", cuda).to(torch.int32).expand(40, 16))
+        assert M.mont_pow_bits(spec, a[:0], bits).shape == (0, 16)
+
+
+def test_msm_finish_on_strided_partials_and_many_sums(cuda):
+    """msm_finish takes plane and row strides (a slice of wider partials) and
+    more sums than the CTA has warps (k = 20 at c = 16); both equal the plain
+    finish, and each call is one launch."""
+    import numpy as np
+
+    from zklaim_tpu_torch.ec.gpu_curve import msm_finish_planes
+    from zklaim_tpu_torch.kernels.cases import curve_inputs
+    from zklaim_tpu_torch.msm.pippenger import _finish, _finish_plain
+
+    rng = np.random.default_rng(8)
+    for deg in (1, 2):
+        wide_t, wide_h = curve_inputs(deg, 48, rng, cuda)
+        tot, head = wide_t[..., 9:25], wide_h[..., 9:25]
+        assert not tot.is_contiguous()
+        before = K.LAUNCHES["msm_finish"]
+        got = msm_finish_planes(deg, tot, head, 16, 1)
+        assert K.LAUNCHES["msm_finish"] == before + 1
+        assert max_abs_err(got, _finish_plain(deg, tot.contiguous(), head.contiguous(), 16, 1)) == 0
+    tot, head = curve_inputs(1, 20 * 16, rng, cuda)
+    assert max_abs_err(_finish(1, tot, head, 16, 20), _finish_plain(1, tot, head, 16, 20)) == 0
 
 
 def test_point_double_on_strided_views(cuda):
@@ -91,16 +173,27 @@ def test_point_double_on_strided_views(cuda):
 
 def test_credential_flow_statuses_on_card(cuda):
     """The zero-payload credential flow through claims.api.Context on the
-    card: every status code as expected, K5 launched by proof_generate."""
+    card: every status code as expected; proof_generate launches msm_finish
+    once a finish and no doubling; trusted_setup launches mont_pow once a
+    batched inversion (one a non-empty table: at most five) and none of the
+    squarings it replaced."""
     from zklaim_tpu_torch.entry import run_credential_path
 
     K.reset_launches()
     res = run_credential_path(cuda, num_payloads=0, requests=1, seed=11)
     assert res["statuses_ok"], (res["status"], res["expected"])
-    assert res["reprove_launches"]["point_double"] == 2 * 263
+    assert res["reprove_launches"]["msm_finish"] == 2
+    assert res["reprove_launches"]["point_double"] == 0
+    assert res["reprove_launches"]["mont_pow"] == 0
+    assert 1 <= res["trusted_setup_launches"]["mont_pow"] <= 5
+    assert res["trusted_setup_launches"]["mont_mul"] < 100
 
 
 def test_small_circuit_same_on_card_and_cpu(cuda):
+    """One seed gives the same proving key, verifying key and proof on the
+    card and on the CPU, as tensors and as serde bytes."""
+    from zklaim_tpu_torch.claims import serde
+
     cs, witness = tiny_circuit()
     out = {}
     for dev in (cuda, "cpu"):
@@ -111,19 +204,24 @@ def test_small_circuit_same_on_card_and_cpu(cuda):
         assert torch.equal(getattr(gpk, name).cpu(), getattr(cpk, name)), name
     assert gvk.ic == cvk.ic
     assert gproof == cproof
+    assert serde.pk_to_bytes(gpk, 0) == serde.pk_to_bytes(cpk, 0)
+    assert serde.vk_to_bytes(gvk) == serde.vk_to_bytes(cvk)
+    assert serde.proof_to_bytes(gproof) == serde.proof_to_bytes(cproof)
 
 
 def test_main_path_launches_every_kernel(cuda):
     """On the small circuit (m = 512) every NTT stage fits in one K2 tile,
-    so K3 must not launch there; the other kernels of the proving paths, K5
-    included, must, and no probe kernel may."""
+    so K3 must not launch there; the other kernels a proof needs, msm_finish
+    included, must; a proof inverts nothing and doubles only inside
+    msm_finish, so mont_pow and point_double must not; nor may a probe."""
     K.reset_launches()
     res = run_main_path(cuda, requests=1, seed=9, tiny=True)
     assert res["verified"] == [True]
     assert res["unsatisfied_rejected"] and res["wrong_input_rejected"]
     assert res["m"] <= gpu_ntt.TILE
     assert K.LAUNCHES["ntt_stage"] == 0, K.LAUNCHES
-    assert all(K.LAUNCHES[k] > 0 for k in K.PATH_KERNELS if k != "ntt_stage"), K.LAUNCHES
+    assert all(K.LAUNCHES[k] > 0 for k in K.PROOF_KERNELS if k != "ntt_stage"), K.LAUNCHES
+    assert K.LAUNCHES["mont_pow"] == 0 and K.LAUNCHES["point_double"] == 0, K.LAUNCHES
     assert all(K.LAUNCHES[k] == 0 for k in K.PROBE_KERNELS), K.LAUNCHES
 
 

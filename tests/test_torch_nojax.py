@@ -6,7 +6,9 @@ runs, on the CPU, its Groth16 main path on the small circuit (setup, one
 proof, its verification, the unsatisfied and wrong-input rejections) and
 the zero-payload credential flow through claims.api.Context, imports the
 measuring path (bench, parallel.prove, utils.profiling and every module of
-tools) and drives one probe.  The source scan rejects any import of either
+tools) and drives one probe, and runs the two whole-loop dispatchers
+(ff.montgomery.mont_pow_bits, msm.pippenger._finish) on CPU tensors.  The
+source scan rejects any import of either
 in the package and in chip_smoke.py.
 """
 
@@ -19,6 +21,7 @@ from pathlib import Path
 import pytest
 
 import zklaim_tpu_torch
+import zklaim_tpu_torch.ff.params
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -55,6 +58,14 @@ from zklaim_tpu_torch.tools import (
     pallas_micro, pallas_op_micro, prove_profile, setup_profile, vpu_micro,
 )
 probe_rows = pallas_op_micro.measure("cpu", widths=(16,)) + mont_micro.measure("cpu", widths=(4,))
+from zklaim_tpu_torch.ec import curve, rcb_schedule
+from zklaim_tpu_torch.ff import montgomery
+from zklaim_tpu_torch.msm import pippenger
+x = torch.from_numpy(montgomery.encode_ints(montgomery.FQ, [0, 1, 7]).astype("int32"))
+inverses = montgomery.decode_ints(montgomery.FQ, montgomery.mont_inv(montgomery.FQ, x))
+infinity = curve.infinity_planes(1, 16, "cpu")
+finished = pippenger._finish(1, infinity, infinity, 16, 1)
+schedule_words = len(rcb_schedule.pack(rcb_schedule.finish_schedule(2)))
 ntt_row = bench.bench_ntt(3, runs=1, device="cpu")
 res = run_main_path("cpu", requests=1, seed=5, tiny=True)
 cred = run_credential_path("cpu", num_payloads=0, requests=1, seed=5)
@@ -62,6 +73,9 @@ res["credential_statuses_ok"] = cred["statuses_ok"]
 res["credential_verify"] = cred["status"]["verify"]
 res["probe_devices"] = sorted({r["device"] for r in probe_rows})
 res["ntt_metric"] = ntt_row["metric"]
+res["inverses"] = [str(v) for v in inverses]
+res["finish_is_infinity"] = bool(torch.equal(finished, curve.infinity_planes(1, 1, "cpu")))
+res["schedule_words"] = schedule_words
 res["foreign"] = sorted(m for m, v in sys.modules.items()
                         if v is not None and m.split(".")[0] in BLOCKED)
 print(json.dumps(res))
@@ -78,6 +92,9 @@ def test_main_path_runs_with_jax_blocked():
     assert (res["num_vars"], res["m"]) == (281, 512)
     assert res["credential_statuses_ok"] and res["credential_verify"] == [0]
     assert res["probe_devices"] == ["cpu"] and res["ntt_metric"] == "ntt_fr_2^3_elems_per_sec"
+    q = zklaim_tpu_torch.ff.params.Q
+    assert res["inverses"] == ["0", "1", str(pow(7, q - 2, q))]
+    assert res["finish_is_infinity"] and res["schedule_words"] > 100
     assert res["foreign"] == []
 
 

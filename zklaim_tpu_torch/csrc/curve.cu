@@ -1,22 +1,22 @@
 // K4 and K5: the complete projective point add and point doubling
-// (Renes-Costello-Batina 2016, alg. 7 and alg. 9, a = 0) on limb planes,
-// templated on the field degree (1: G1 over Fq, 2: G2 over Fq2).
+// (Renes-Costello-Batina 2016, alg. 7 and alg. 9, a = 0) on limb planes, and
+// the MSM finish built from them, all templated on the field degree (1: G1
+// over Fq, 2: G2 over Fq2).
 //
-// Layout (both kernels): a point batch is 3 * deg planes of (16, n) int32
+// Layout (all kernels): a point batch is 3 * deg planes of (16, n) int32
 // limbs, G2 in the order (x0, x1, y0, y1, z0, z1).  Each operand is a base
 // pointer with its own plane and limb (row) strides; elements are
-// contiguous.  One thread per lane, everything in registers, the whole
-// formula one inlined program.
+// contiguous.
 //
 // K4 point_add
 // Replaces: zklaim_tpu/ec/pallas_curve.py:_add_kernel, launched through
 // _padd_soa (point_add_planes) and _padd_halves_soa (point_add_halves).
-// The formula is rcb.cuh's rcb_add, the dataflow of _rcb_add
-// (pallas_curve.py:143-164), so the projective outputs are bit-identical to
-// jaxcurve.point_add; the probes of probes.cu call the same function.  With
-// per-operand strides the halves mode of the MSM upsweep -- lo half + hi
-// half of one plane set -- is one launch on two strided views, with no
-// copy and no second kernel.
+// One thread per lane, everything in registers.  The formula is rcb.cuh's
+// rcb_add, the dataflow of _rcb_add (pallas_curve.py:143-164), so the
+// projective outputs are bit-identical to jaxcurve.point_add; the probes of
+// probes.cu call the same function.  With per-operand strides the halves
+// mode of the MSM upsweep -- lo half + hi half of one plane set -- is one
+// launch on two strided views, with no copy and no second kernel.
 // What bounds it on the card: integer multiply throughput (12 Fq
 // multiplies for G1; 12 Fq2 = 36 Fq multiplies for G2 plus a Fq2 constant
 // multiply per 3b) and registers: a G2 add keeps the six input
@@ -26,17 +26,53 @@
 //
 // K5 point_double
 // Replaces: zklaim_tpu/ec/pallas_curve.py:_double_kernel, launched through
-// _pdouble_soa (point_double).  The formula dataflow is _rcb_double
-// (pallas_curve.py:167-182), so the projective outputs are bit-identical
-// to jaxcurve.point_double, for every input including infinity (0, 1, 0).
+// _pdouble_soa (point_double).  One thread per lane; the formula is
+// rcb.cuh's rcb_double, the dataflow of _rcb_double
+// (pallas_curve.py:167-182), bit-identical to jaxcurve.point_double for
+// every input including infinity (0, 1, 0).
 // What bounds it on the card: integer multiply-adds -- 8 Fq multiplies for
 // G1; 8 Fq2 = 24 Fq multiplies plus one Fq2 constant multiply (3 more) for
-// G2 -- against 3 deg x 64 B in and as much out per lane.  Only three
-// input coordinates are live, not six, so the G2 doubling needs far fewer
-// registers than the G2 add.  Its callers are the MSM finish's doublings
-// at 1-128 lanes: there a launch is a few threads of one SM, each running
-// its lane's products one after the other, so the time is launch latency
-// plus one thread's serial chain of multiply-adds, not throughput.
+// G2 -- against 3 deg x 64 B in and as much out per lane.  Its callers are
+// wide: the 256 steps of scalar_mul / msm_ladder.  The MSM finish, c
+// doublings a Horner step on 1-4 lanes, is msm_finish below.
+//
+// msm_finish (K5's second entry)
+// Replaces: zklaim_tpu/msm/pippenger.py:_finish, which under jit is two
+// lax.fori_loops over point_double and point_add; as a loop of eager calls it
+// would be 263 K5 and 33 K4 launches a finish on 1-128 lanes, each a few
+// threads of one SM and 20-50 us of the host.  Here a finish is ONE launch of one
+// CTA, and the window points never reach device memory:
+//   phase A: for each of the k W window lanes, c - 1 doublings of tot and
+//     one add of the negated head; the window point stays in shared memory
+//     (G1 k W = 128: 12 KB; G2 32: 6 KB);
+//   phase B: for each of the k sums, acc = infinity; for w = W-1..0:
+//     acc = 2^c acc + window[i W + w].
+// Phase B is a chain: a thread a sum would run the 8 (27) products of a
+// doubling and the 12 (42) of an add one after the other, 2,432 (8,256)
+// dependent products.  Instead the independent products of ONE point
+// operation are spread over a group of threads of a warp: a doubling is two
+// rounds of 4 products, an add two rounds of 6 (over Fq2 each product is
+// four Fq products, and 3b' and 9b' one more round), so a group of 6 (24)
+// threads takes one product each a round.  Threads that run different
+// straight-line code diverge, so the formula is not code but a schedule
+// (ec/rcb_schedule.py builds it, the CPU tests interpret it against the
+// plain formulas): a list of steps, each either products or additions and
+// subtractions in Fq, and in it, for every thread of the group, an opcode,
+// two source slots and a destination slot in the group's file of field
+// elements in shared memory.  Every thread of a product step runs the same
+// fe_mul on its own operands; __syncwarp() separates a step's reads from
+// its writes.  That cuts the chain to 576 (864) product steps plus the
+// cheaper linear ones.  Phase A runs the same schedule, one group a window
+// lane, five (one) groups a warp and up to 16 warps, so the kernel holds
+// no straight-line point formula at all and compiles in seconds.  Sums go
+// to different warps first, lanes fill every group.
+// Every field operation returns the canonical residue, so the schedule's
+// order of operations gives the limbs of the reference's.
+// What bounds it: the latency of one warp's dependent chain (about 1 us a
+// product step, as K6 measures fe_mul at low occupancy, and a fraction of
+// that a linear step); bytes and throughput are nothing (one CTA).
+// ptxas (CUDA 12.8, sm_90a): msm_finish 63 registers, no spills; K4 108 (G1)
+// and 255 with 128 bytes spilled (G2), K5 80 / 194.
 #include <cuda_runtime.h>
 
 #include "field.cuh"
@@ -78,18 +114,8 @@ __global__ void point_double_kernel(const int32_t* __restrict__ p, int64_t p_ps,
   const T y = Fd::load(p, p_ps, p_ls, 1, i);
   const T z = Fd::load(p, p_ps, p_ls, 2, i);
 
-  const T t0 = Fd::mul(y, y);
-  const T t1 = Fd::mul(y, z);
-  const T t2 = Fd::mul(z, z);
-  const T t3 = Fd::mul(x, y);
-  const T z8 = Fd::dbl(Fd::dbl(Fd::dbl(t0)));      // 8 Y^2
-  const T nb = Fd::mul_b3(t2);                     // 3b Z^2
-  const T n3 = Fd::add(Fd::dbl(nb), nb);
-  const T t0m = Fd::sub(t0, n3);
-  const T t0p = Fd::add(t0, nb);
-  const T z3 = Fd::mul(t1, z8);
-  const T y3 = Fd::add(Fd::mul(t0m, t0p), Fd::mul(nb, z8));
-  const T x3 = Fd::dbl(Fd::mul(t0m, t3));
+  T x3, y3, z3;
+  rcb_double<DEG>(x, y, z, x3, y3, z3);
 
   Fd::store(out, o_ps, o_ls, 0, i, x3);
   Fd::store(out, o_ps, o_ls, 1, i, y3);
@@ -135,5 +161,208 @@ extern "C" int zk_point_double(int deg,
   } else {
     return (int)cudaErrorInvalidValue;
   }
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// msm_finish
+// ---------------------------------------------------------------------------
+
+#define FIN_THREADS 512      // 16 warps: 128 registers a thread, so the interpreter does not spill
+#define FIN_SHARED_MAX (227 * 1024)
+#define FIN_MUL 0
+#define FIN_ADD 1
+#define FIN_SUB 2
+#define FIN_IDLE 0xffu
+// the schedule (ec/rcb_schedule.py:pack): header words, then the constants,
+// the doubling's steps and the add's steps
+#define FIN_G 0              // threads of a group
+#define FIN_NS 1             // slots of a group's file
+#define FIN_NCONST 2
+#define FIN_SDBL 3
+#define FIN_SADD 4
+#define FIN_ACC 5            // 6 words: the slot of each component of acc
+#define FIN_Q 11             // 6 words: the slot of each component of the addend
+#define FIN_HDR 17
+
+// slot s of a file of ns slots: word w at file[w * ns + s], so threads that
+// read different slots read different banks
+__device__ __forceinline__ Fe slot_load(const uint32_t* file, int ns, uint32_t s) {
+  Fe r;
+#pragma unroll
+  for (int w = 0; w < 8; w++) r.v[w] = file[w * ns + s];
+  return r;
+}
+
+__device__ __forceinline__ void slot_store(uint32_t* file, int ns, uint32_t s, const Fe& a) {
+#pragma unroll
+  for (int w = 0; w < 8; w++) file[w * ns + s] = a.v[w];
+}
+
+// The groups of one warp run `nsteps` steps of a schedule, each on its own
+// file; every thread of the warp calls this, `on` false for a thread whose
+// group has nothing to do.  A step is one word a member, a | b << 8 |
+// d << 16 | op << 24: slot d = slot a (op) slot b.  A step holds products
+// only or linear operations only (rcb_schedule.pack checks it), so a product
+// step does not diverge.
+__device__ __forceinline__ void run_steps(const uint32_t* steps, int nsteps, int g,
+                                          uint32_t* file, int ns, int member, bool on) {
+  uint32_t next = on && nsteps > 0 ? steps[member] : (FIN_IDLE << 16);
+#pragma unroll 1
+  for (int s = 0; s < nsteps; s++) {
+    const uint32_t e = next;
+    next = on && s + 1 < nsteps ? steps[(s + 1) * g + member] : (FIN_IDLE << 16);
+    const uint32_t d = (e >> 16) & 0xffu, op = e >> 24;
+    Fe r;
+    if (d != FIN_IDLE) {
+      const Fe a = slot_load(file, ns, e & 0xffu);
+      const Fe b = slot_load(file, ns, (e >> 8) & 0xffu);
+      if (op == FIN_MUL) {
+        r = fe_mul<ZK_FQ>(a, b);
+      } else if (op == FIN_ADD) {
+        r = fe_add<ZK_FQ>(a, b);
+      } else {
+        r = fe_sub<ZK_FQ>(a, b);
+      }
+    }
+    __syncwarp();                       // every read of the step before any write
+    if (d != FIN_IDLE) slot_store(file, ns, d, r);
+    __syncwarp();
+  }
+}
+
+// nc = 3 deg Fq components a point: plane j of tot, head and out is
+// component j, and window lane l's component j, word w is win[(j * 8 + w) * kw + l].
+__global__ void __launch_bounds__(FIN_THREADS)
+msm_finish_kernel(const int32_t* __restrict__ tot, int64_t t_ps, int64_t t_ls,
+                  const int32_t* __restrict__ head, int64_t h_ps, int64_t h_ls,
+                  int32_t* __restrict__ out, int64_t o_ps, int64_t o_ls,
+                  int nc, int k, int W, int c,
+                  const uint32_t* __restrict__ sched, int sched_words) {
+  extern __shared__ uint32_t smem[];
+  const int kw = k * W;
+  const int tid = threadIdx.x;
+  uint32_t* prog = smem;
+  uint32_t* win = prog + sched_words;
+  uint32_t* files = win + nc * 8 * kw;
+  for (int j = tid; j < sched_words; j += blockDim.x) prog[j] = sched[j];
+  __syncthreads();
+
+  const int g = prog[FIN_G], ns = prog[FIN_NS], nconst = prog[FIN_NCONST];
+  const int sdbl = prog[FIN_SDBL], sadd = prog[FIN_SADD];
+  const uint32_t* consts = prog + FIN_HDR;
+  const uint32_t* dbl_steps = consts + 9 * nconst;
+  const uint32_t* add_steps = dbl_steps + sdbl * g;
+  // a warp holds 32 / g groups; unit u = group * warps + warp, so the first
+  // units lie in different warps
+  const int warp = tid >> 5, nwarps = blockDim.x >> 5;
+  const int group = (tid & 31) / g, member = (tid & 31) % g;
+  const bool seated = group < 32 / g;
+  const int unit = group * nwarps + warp, units = (32 / g) * nwarps;
+  uint32_t* file = files + unit * ns * 8;
+  const bool point = seated && member < nc;         // this thread moves component `member`
+  const uint32_t acc_slot = point ? prog[FIN_ACC + member] : 0;
+  const uint32_t q_slot = point ? prog[FIN_Q + member] : 0;
+  const bool is_y = member / (nc / 3) == 1;
+
+  // ---- phase A: window lane l = 2^(c-1) tot[l] - head[l] -------------------
+  for (int base = 0; base < kw; base += units) {
+    const int lane = base + unit;
+    const bool on = seated && lane < kw;
+    if (on) {
+      for (int j = member; j < nconst; j += g) {
+        const uint32_t* cj = consts + 9 * j;
+#pragma unroll
+        for (int w = 0; w < 8; w++) file[w * ns + cj[0]] = cj[1 + w];
+      }
+    }
+    __syncwarp();                       // acc = infinity was among the constants:
+    if (on && point) slot_store(file, ns, acc_slot, fe_load(tot + member * t_ps, t_ls, 1, lane));
+    __syncwarp();
+#pragma unroll 1
+    for (int j = 0; j < c; j++) {
+      if (j == c - 1) {                 // the addend: -head
+        if (on && point) {
+          Fe h = fe_load(head + member * h_ps, h_ls, 1, lane);
+          if (is_y) h = fe_sub<ZK_FQ>(Fe(), h);
+          slot_store(file, ns, q_slot, h);
+        }
+        __syncwarp();
+      }
+      run_steps(j == c - 1 ? add_steps : dbl_steps, j == c - 1 ? sadd : sdbl, g, file, ns,
+                member, on);
+    }
+    if (on && point) {
+      const Fe v = slot_load(file, ns, acc_slot);
+#pragma unroll
+      for (int w = 0; w < 8; w++) win[(member * 8 + w) * kw + lane] = v.v[w];
+    }
+    __syncwarp();
+  }
+  __syncthreads();
+
+  // ---- phase B: sum i = Horner over its W window points --------------------
+  for (int base = 0; base < k; base += units) {
+    const int i = base + unit;
+    const bool on = seated && i < k;
+    if (on) {                           // the constants again: acc = infinity
+      for (int j = member; j < nconst; j += g) {
+        const uint32_t* cj = consts + 9 * j;
+#pragma unroll
+        for (int w = 0; w < 8; w++) file[w * ns + cj[0]] = cj[1 + w];
+      }
+    }
+    __syncwarp();
+#pragma unroll 1
+    for (int w = W - 1; w >= 0; w--) {
+#pragma unroll 1
+      for (int j = 0; j <= c; j++) {
+        if (j == c) {                   // the addend: window w of sum i
+          if (on && point) {
+#pragma unroll
+            for (int wd = 0; wd < 8; wd++) {
+              file[wd * ns + q_slot] = win[(member * 8 + wd) * kw + i * W + w];
+            }
+          }
+          __syncwarp();
+        }
+        run_steps(j == c ? add_steps : dbl_steps, j == c ? sadd : sdbl, g, file, ns, member, on);
+      }
+    }
+    if (on && point) fe_store(out + member * o_ps, o_ls, 1, i, slot_load(file, ns, acc_slot));
+    __syncwarp();
+  }
+}
+
+// g, slots: the schedule's group size and file size (its header words FIN_G
+// and FIN_NS).  Shared memory of a launch: the schedule, the window points,
+// one file a group; above 48 KB the kernel opts in to as much as it needs.
+extern "C" int zk_msm_finish(int deg,
+                             const void* tot, long long t_ps, long long t_ls,
+                             const void* head, long long h_ps, long long h_ls,
+                             void* out, long long o_ps, long long o_ls,
+                             int k, int W, int c,
+                             const void* sched, int sched_words, int g, int slots,
+                             void* stream) {
+  if (k <= 0) return 0;
+  if ((deg != 1 && deg != 2) || W <= 0 || c < 2 || sched_words < FIN_HDR || slots <= 0 ||
+      g < 3 * deg || g > 32) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int kw = k * W, per_warp = 32 / g;
+  int warps = (kw + per_warp - 1) / per_warp;        // a group a window lane, if they fit
+  if (warps < k) warps = k;                          // and a warp a sum
+  if (warps > FIN_THREADS / 32) warps = FIN_THREADS / 32;
+  const size_t bytes = 4 * ((size_t)sched_words + (size_t)3 * deg * 8 * kw +
+                            (size_t)warps * per_warp * slots * 8);
+  if (bytes > FIN_SHARED_MAX) return (int)cudaErrorInvalidValue;
+  if (bytes > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(msm_finish_kernel,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  msm_finish_kernel<<<1, warps * 32, bytes, (cudaStream_t)stream>>>(
+      (const int32_t*)tot, t_ps, t_ls, (const int32_t*)head, h_ps, h_ls,
+      (int32_t*)out, o_ps, o_ls, 3 * deg, k, W, c, (const uint32_t*)sched, sched_words);
   return (int)cudaGetLastError();
 }

@@ -15,8 +15,9 @@
 //
 // What bounds it on the card: integer multiply-add throughput (64 32x32
 // products per CIOS multiply) and registers (an Fe is 8 registers; a G2
-// point add keeps ~20 Fe live).  Design: 64-bit accumulators so the
-// compiler emits mad.lo/mad.hi carry chains, constants in __constant__
+// point add keeps ~20 Fe live).  Design: 64-bit accumulators in fe_mul so the
+// compiler emits mad.lo/mad.hi carry chains, add and subtract as add.cc /
+// sub.cc chains in PTX, constants in __constant__
 // memory (every thread reads the same address: a broadcast), everything
 // force-inlined so each kernel is one straight-line register program.
 #pragma once
@@ -41,6 +42,11 @@ static __constant__ uint32_t ZK_P[2][8] = {
 };
 // n' = -p^{-1} mod 2^32
 static __constant__ uint32_t ZK_NP[2] = {0xe4866389u, 0xefffffffu};
+// R mod p, the Montgomery form of 1
+static __constant__ uint32_t ZK_ONE[2][8] = {
+    {0xc58f0d9du, 0xd35d438du, 0xf5c70b3du, 0x0a78eb28u, 0x7879462cu, 0x666ea36fu, 0x9a07df2fu, 0x0e0a77c1u},
+    {0x4ffffffbu, 0xac96341cu, 0x9f60cd29u, 0x36fc7695u, 0x7879462eu, 0x666ea36fu, 0x9a07df2fu, 0x0e0a77c1u},
+};
 // 3 * b' for G2 (b' = 3 / xi), Montgomery form over Fq: (c0, c1)
 static __constant__ uint32_t ZK_B3_G2[2][8] = {
     {0xb62e0d6au, 0x3baa927cu, 0xd1b664fdu, 0xd71e7c52u, 0xd95d4664u, 0x03873e63u, 0x082ab8f4u, 0x0e75b5b1u},
@@ -75,6 +81,31 @@ __device__ __forceinline__ void fe_store(int32_t* base, int64_t limb_stride,
   }
 }
 
+// One contiguous element (16 int32 limbs = 64 bytes, 16-byte aligned) as four
+// 16-byte vectors: a warp's four loads cover 32 neighbouring elements, 2 KB,
+// every byte of which is used, where each load of the scalar path above
+// touches 32 separate 32-byte sectors for 4 bytes of each.
+__device__ __forceinline__ Fe fe_load_vec(const int32_t* elem) {
+  const int4* p = reinterpret_cast<const int4*>(elem);
+  Fe r;
+#pragma unroll
+  for (int j = 0; j < 4; j++) {
+    const int4 q = __ldg(p + j);
+    r.v[2 * j] = (uint32_t)q.x | ((uint32_t)q.y << 16);
+    r.v[2 * j + 1] = (uint32_t)q.z | ((uint32_t)q.w << 16);
+  }
+  return r;
+}
+
+__device__ __forceinline__ void fe_store_vec(int32_t* elem, const Fe& a) {
+  int4* p = reinterpret_cast<int4*>(elem);
+#pragma unroll
+  for (int j = 0; j < 4; j++) {
+    p[j] = make_int4((int)(a.v[2 * j] & 0xffffu), (int)(a.v[2 * j] >> 16),
+                     (int)(a.v[2 * j + 1] & 0xffffu), (int)(a.v[2 * j + 1] >> 16));
+  }
+}
+
 __device__ __forceinline__ Fe fe_const(const uint32_t (&c)[8]) {
   Fe r;
 #pragma unroll
@@ -86,53 +117,71 @@ __device__ __forceinline__ Fe fe_const(const uint32_t (&c)[8]) {
 // modular add / sub (canonical in, canonical out)
 // ---------------------------------------------------------------------------
 
+// 8-word add and subtract as ONE hardware carry chain each (add.cc / addc.cc,
+// sub.cc / subc.cc: 8 dependent instructions), where 64-bit C arithmetic
+// compiles to two or three instructions a word and holds more registers (the
+// G1 add needs 108 with the chains and 158 without).  Every kernel's linear
+// operations are these.  Both update r in place, so a register is read only
+// by the instruction that overwrites it, whatever registers the compiler
+// shares among the operands.
+// r += b mod 2^256; returns the carry out (0 or 1)
+__device__ __forceinline__ uint32_t add8(Fe& r, const Fe& b) {
+  uint32_t carry;
+  asm("add.cc.u32 %0, %0, %9;\n\t"
+      "addc.cc.u32 %1, %1, %10;\n\t"
+      "addc.cc.u32 %2, %2, %11;\n\t"
+      "addc.cc.u32 %3, %3, %12;\n\t"
+      "addc.cc.u32 %4, %4, %13;\n\t"
+      "addc.cc.u32 %5, %5, %14;\n\t"
+      "addc.cc.u32 %6, %6, %15;\n\t"
+      "addc.cc.u32 %7, %7, %16;\n\t"
+      "addc.u32 %8, 0, 0;"
+      : "+r"(r.v[0]), "+r"(r.v[1]), "+r"(r.v[2]), "+r"(r.v[3]), "+r"(r.v[4]), "+r"(r.v[5]),
+        "+r"(r.v[6]), "+r"(r.v[7]), "=r"(carry)
+      : "r"(b.v[0]), "r"(b.v[1]), "r"(b.v[2]), "r"(b.v[3]), "r"(b.v[4]), "r"(b.v[5]),
+        "r"(b.v[6]), "r"(b.v[7]));
+  return carry;
+}
+
+// r -= b mod 2^256; returns the borrow out (0, or 0xffffffff where r < b)
+__device__ __forceinline__ uint32_t sub8(Fe& r, const Fe& b) {
+  uint32_t borrow;
+  asm("sub.cc.u32 %0, %0, %9;\n\t"
+      "subc.cc.u32 %1, %1, %10;\n\t"
+      "subc.cc.u32 %2, %2, %11;\n\t"
+      "subc.cc.u32 %3, %3, %12;\n\t"
+      "subc.cc.u32 %4, %4, %13;\n\t"
+      "subc.cc.u32 %5, %5, %14;\n\t"
+      "subc.cc.u32 %6, %6, %15;\n\t"
+      "subc.cc.u32 %7, %7, %16;\n\t"
+      "subc.u32 %8, 0, 0;"
+      : "+r"(r.v[0]), "+r"(r.v[1]), "+r"(r.v[2]), "+r"(r.v[3]), "+r"(r.v[4]), "+r"(r.v[5]),
+        "+r"(r.v[6]), "+r"(r.v[7]), "=r"(borrow)
+      : "r"(b.v[0]), "r"(b.v[1]), "r"(b.v[2]), "r"(b.v[3]), "r"(b.v[4]), "r"(b.v[5]),
+        "r"(b.v[6]), "r"(b.v[7]));
+  return borrow;
+}
+
 // r = a - p if a >= p (a < 2^256 given with an extra carry bit `hi`)
 template <int F>
 __device__ __forceinline__ Fe fe_reduce_once(const Fe& a, uint32_t hi) {
-  Fe d;
-  uint64_t borrow = 0;
-#pragma unroll
-  for (int j = 0; j < 8; j++) {
-    uint64_t t = (uint64_t)a.v[j] - ZK_P[F][j] - borrow;
-    d.v[j] = (uint32_t)t;
-    borrow = (t >> 32) & 1u;
-  }
+  Fe d = a;
+  const uint32_t borrow = sub8(d, fe_const(ZK_P[F]));
   // a + hi*2^256 >= p  <=>  hi set or no borrow
   return (hi || !borrow) ? d : a;
 }
 
 template <int F>
 __device__ __forceinline__ Fe fe_add(const Fe& a, const Fe& b) {
-  Fe s;
-  uint64_t c = 0;
-#pragma unroll
-  for (int j = 0; j < 8; j++) {
-    uint64_t t = (uint64_t)a.v[j] + b.v[j] + c;
-    s.v[j] = (uint32_t)t;
-    c = t >> 32;
-  }
-  return fe_reduce_once<F>(s, (uint32_t)c);
+  Fe s = a;
+  const uint32_t carry = add8(s, b);
+  return fe_reduce_once<F>(s, carry);
 }
 
 template <int F>
 __device__ __forceinline__ Fe fe_sub(const Fe& a, const Fe& b) {
-  Fe d;
-  uint64_t borrow = 0;
-#pragma unroll
-  for (int j = 0; j < 8; j++) {
-    uint64_t t = (uint64_t)a.v[j] - b.v[j] - borrow;
-    d.v[j] = (uint32_t)t;
-    borrow = (t >> 32) & 1u;
-  }
-  if (borrow) {
-    uint64_t c = 0;
-#pragma unroll
-    for (int j = 0; j < 8; j++) {
-      uint64_t t = (uint64_t)d.v[j] + ZK_P[F][j] + c;
-      d.v[j] = (uint32_t)t;
-      c = t >> 32;
-    }
-  }
+  Fe d = a;
+  if (sub8(d, b)) add8(d, fe_const(ZK_P[F]));      // a < b: a - b + p
   return d;
 }
 

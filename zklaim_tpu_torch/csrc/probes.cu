@@ -41,7 +41,7 @@
 // Replaces: the kernel of tools/padd_micro.py:build(K) (launched at :24):
 // K chained G1 adds pt <- pt + pt on (3, 16, lanes) planes, each the complete
 // rcb_add<1> (12 Fq products a step).  Bound by integer multiply-adds and,
-// at K4's 158 registers a thread, by how many lanes an SM keeps in flight.
+// at K4's 108 registers a thread, by how many lanes an SM keeps in flight.
 #include <cuda_runtime.h>
 
 #include "field.cuh"

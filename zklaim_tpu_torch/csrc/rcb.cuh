@@ -1,15 +1,18 @@
-// The complete projective point add (Renes-Costello-Batina 2016, alg. 7,
-// a = 0) as one device function, templated on the field degree (1: G1 over
-// Fq, 2: G2 over Fq2).
+// The complete projective point add and doubling (Renes-Costello-Batina
+// 2016, alg. 7 and alg. 9, a = 0) as device functions, templated on the
+// field degree (1: G1 over Fq, 2: G2 over Fq2).
 //
-// Replaces: zklaim_tpu/ec/pallas_curve.py:_rcb_add (lines 143-164), the
-// formula every Pallas add kernel inlines.  The dataflow is _rcb_add's, so
-// the projective outputs are bit-identical to jaxcurve.point_add.
+// Replaces: zklaim_tpu/ec/pallas_curve.py:_rcb_add (lines 143-164) and
+// _rcb_double (lines 167-182), the formulas every Pallas curve kernel
+// inlines.  The dataflows are theirs, so the projective outputs are
+// bit-identical to jaxcurve.point_add and jaxcurve.point_double, for every
+// input including infinity (0, 1, 0).
 //
-// K4 (curve.cu) and the probes K8 and K9 (probes.cu) all call this one
-// function, so a probe times exactly the arithmetic the production kernel
-// runs.  The outputs may alias the inputs: every input is read before the
-// first output is written.
+// K4 and K5 (curve.cu) and the probes K8 and K9 (probes.cu) call these
+// functions, so a probe times exactly the arithmetic the production kernels
+// run.  (msm_finish runs the same two formulas as a schedule of Fq steps,
+// ec/rcb_schedule.py.)  The outputs may alias the inputs: every input is
+// read before the first output is written.
 #pragma once
 
 #include "field.cuh"
@@ -40,4 +43,25 @@ __device__ __forceinline__ void rcb_add(
   x3 = Fd::sub(Fd::mul(t3, wmn), Fd::mul(t4, bv));
   y3 = Fd::add(Fd::mul(wpn, wmn), Fd::mul(m, bv));
   z3 = Fd::add(Fd::mul(t4, wpn), Fd::mul(t3, m));
+}
+
+template <int DEG>
+__device__ __forceinline__ void rcb_double(
+    const typename CurveField<DEG>::T& x, const typename CurveField<DEG>::T& y,
+    const typename CurveField<DEG>::T& z, typename CurveField<DEG>::T& x3,
+    typename CurveField<DEG>::T& y3, typename CurveField<DEG>::T& z3) {
+  typedef CurveField<DEG> Fd;
+  typedef typename Fd::T T;
+  const T t0 = Fd::mul(y, y);
+  const T t1 = Fd::mul(y, z);
+  const T t2 = Fd::mul(z, z);
+  const T t3 = Fd::mul(x, y);
+  const T z8 = Fd::dbl(Fd::dbl(Fd::dbl(t0)));      // 8 Y^2
+  const T nb = Fd::mul_b3(t2);                     // 3b Z^2
+  const T n3 = Fd::add(Fd::dbl(nb), nb);
+  const T t0m = Fd::sub(t0, n3);
+  const T t0p = Fd::add(t0, nb);
+  z3 = Fd::mul(t1, z8);
+  y3 = Fd::add(Fd::mul(t0m, t0p), Fd::mul(nb, z8));
+  x3 = Fd::dbl(Fd::mul(t0m, t3));
 }

@@ -1,5 +1,5 @@
-"""Complete point add and doubling on (3 deg, 16, n) limb planes:
-kernels K4 and K5.
+"""Complete point add and doubling on (3 deg, 16, n) limb planes, and the
+MSM finish built from them: kernels K4 and K5 (point_double, msm_finish).
 
 Counterpart of zklaim_tpu/ec/pallas_curve.py (point_add_planes,
 point_add_halves, point_double).  A point batch of width n is one int32
@@ -13,15 +13,23 @@ curve.point_double).
 
 `scalar_mul` is the counterpart of jaxcurve.scalar_mul on planes: the
 batched double-and-add ladder, each step one K5, one K4 and a select.
+
+`msm_finish_planes` is the whole finish of a Pippenger pass -- the window
+doublings and the Horner ladder of k sums -- as ONE launch of kernel
+msm_finish, CUDA tensors only; its plain version is
+msm.pippenger._finish_plain.
 """
 
 from __future__ import annotations
 
 import torch
 
+from functools import lru_cache
+
 from .. import kernels as K
 from ..ff.limbs import LIMB_BITS, NUM_LIMBS
 from . import curve as C
+from . import rcb_schedule
 
 
 def point_add_plain(deg: int, p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
@@ -105,3 +113,46 @@ def scalar_mul(deg: int, planes: torch.Tensor, scalars: torch.Tensor) -> torch.T
         acc = point_double_planes(deg, acc)
         acc = torch.where(bit == 1, point_add_planes(deg, acc, planes), acc)
     return acc
+
+
+FINISH_SHARED_BYTES = 227 * 1024     # what a CTA can opt in to (csrc/curve.cu:FIN_SHARED_MAX)
+FINISH_MAX_WARPS = 16                # csrc/curve.cu:FIN_THREADS / 32
+
+
+@lru_cache(maxsize=None)
+def _finish_schedule_on(deg: int, device: str) -> tuple:
+    """(packed schedule on the device, its group size, its slot count),
+    uploaded once."""
+    sched = rcb_schedule.finish_schedule(deg)
+    words = torch.from_numpy(rcb_schedule.pack(sched).view("int32").copy())   # the same bits
+    return words.to(device), sched["g"], sched["slots"]
+
+
+def msm_finish_planes(deg: int, tot: torch.Tensor, head: torch.Tensor, c: int,
+                      k: int) -> torch.Tensor:
+    """The finish of k sums in one launch: (3 deg, 16, k W) window partials
+    `tot` and `head` (window w of sum i is lane i W + w, W = 256 / c) ->
+    (3 deg, 16, k) planes, sum i = sum_w 2^(c w) (2^(c-1) tot - head)[i W + w],
+    limb for limb what pippenger._finish_plain gives.  CUDA tensors only."""
+    _check(deg, tot, "msm_finish tot")
+    _check(deg, head, "msm_finish head")
+    if c not in (2, 4, 8, 16):
+        raise ValueError(f"msm_finish: window size {c} (2, 4, 8 or 16)")
+    W = 256 // c
+    if k < 1 or tot.shape != head.shape or tot.shape[2] != k * W or tot.device != head.device:
+        raise ValueError(f"msm_finish: {k} sums of {W} windows with partials "
+                         f"{tuple(tot.shape)} and {tuple(head.shape)}")
+    sched, g, slots = _finish_schedule_on(deg, str(tot.device))
+    per_warp = 32 // g
+    warps = min(FINISH_MAX_WARPS, max(k, -(-k * W // per_warp)))        # as the launcher does
+    need = 4 * (sched.numel() + 3 * deg * 8 * k * W + warps * per_warp * slots * 8)
+    if need > FINISH_SHARED_BYTES:
+        raise ValueError(f"msm_finish: {k} sums of {W} windows need {need} bytes of shared "
+                         f"memory, more than {FINISH_SHARED_BYTES}")
+    out = torch.empty((3 * deg, 16, k), dtype=torch.int32, device=tot.device)
+    K.launch("msm_finish", deg,
+             tot.data_ptr(), tot.stride(0), tot.stride(1),
+             head.data_ptr(), head.stride(0), head.stride(1),
+             out.data_ptr(), out.stride(0), out.stride(1),
+             k, W, c, sched.data_ptr(), sched.numel(), g, slots)
+    return out

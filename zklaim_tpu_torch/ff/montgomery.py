@@ -8,7 +8,10 @@ for limb.
 
 `mont_mul` is the dispatcher: a CUDA tensor goes to the hand-written
 kernel K1 (csrc/mont_mul.cu) for every shape -- no size threshold, so no
-plain Montgomery multiply runs on the card; a CPU tensor goes to
+plain Montgomery multiply runs on the card; `mont_pow_bits` likewise sends
+a CUDA tensor to ONE launch of K1's power kernel `mont_pow` (the batched
+Fermat inversions of the byte formats), a CPU tensor to the binary chain
+`mont_pow_bits_plain`.  A CPU tensor of `mont_mul` goes to
 `mont_mul_plain`, a full-width SOS/REDC in int64 (the JAX package's
 algorithm: one outer product per 256x256-bit product, anti-diagonal sums
 by the pad/reshape shear).  add/sub/neg stay torch built-ins on both.
@@ -16,6 +19,7 @@ by the pad/reshape shear).  add/sub/neg stay torch built-ins on both.
 
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -278,17 +282,62 @@ def reduce_wide(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
     return add_mod(spec, _out(canon), fold)
 
 
-def mont_pow_bits(spec: FieldSpec, a: torch.Tensor, exp_bits: np.ndarray):
-    """a^e for a fixed public exponent given as an LSB-first bit array."""
+def mont_pow_bits_plain(spec: FieldSpec, a: torch.Tensor, exp_bits: np.ndarray):
+    """a^e for a fixed public exponent given as an LSB-first bit array: the
+    binary chain over mont_mul_plain, on any device.  Plain version of
+    kernel mont_pow."""
     acc = torch.broadcast_to(
         spec.const("one_mont", a.device).to(torch.int32), a.shape
     ).contiguous()
     base = a
     for bit in np.asarray(exp_bits).tolist():
         if bit:
-            acc = mont_mul(spec, acc, base)
-        base = mont_mul(spec, base, base)
+            acc = mont_mul_plain(spec, acc, base)
+        base = mont_mul_plain(spec, base, base)
     return acc
+
+
+def pack_exponent(exp_bits) -> tuple[list, int]:
+    """An LSB-first bit array -> (8 little-endian 32-bit words, bit length:
+    the highest set bit's index + 1, 0 for e = 0).  At most 256 bits."""
+    bits = [int(b) for b in np.asarray(exp_bits).reshape(-1).tolist()]
+    if len(bits) > 256:
+        raise ValueError(f"exponent of {len(bits)} bits: at most 256")
+    if any(b not in (0, 1) for b in bits):
+        raise ValueError("exponent bits must be 0 or 1")
+    e = sum(b << i for i, b in enumerate(bits))
+    return [(e >> (32 * j)) & 0xFFFFFFFF for j in range(8)], e.bit_length()
+
+
+def mont_pow_k1(spec: FieldSpec, a: torch.Tensor, exp_bits) -> torch.Tensor:
+    """Kernel mont_pow on a CUDA tensor: a^e for every element in ONE
+    launch, (..., 16) int32 Montgomery form in, a new tensor out.  The
+    kernel reads contiguous elements (a copy is made of anything else) and
+    uses 16-byte loads where the data is 16-byte aligned."""
+    from .. import kernels as K
+
+    K.check_planes(a, "mont_pow a")
+    if a.dim() < 1 or a.shape[-1] != L:
+        raise ValueError(f"mont_pow: trailing limb axis must be {L}, got {tuple(a.shape)}")
+    words, nbits = pack_exponent(exp_bits)
+    a = a.contiguous()
+    out = torch.empty_like(a)
+    n = a.numel() // L
+    if n:
+        exp_words = (ctypes.c_uint32 * 8)(*words)      # read by the launcher before it returns
+        K.launch("mont_pow", a.data_ptr(), out.data_ptr(), n,
+                 ctypes.addressof(exp_words), nbits, spec.field_id)
+    return out
+
+
+def mont_pow_bits(spec: FieldSpec, a: torch.Tensor, exp_bits: np.ndarray):
+    """a^e for a fixed public exponent given as an LSB-first bit array of at
+    most 256 bits; 0^e = 0 for e > 0, a^0 = 1.  CUDA -> one mont_pow launch,
+    CPU -> the plain chain."""
+    if a.is_cuda:
+        return mont_pow_k1(spec, a, exp_bits)
+    pack_exponent(exp_bits)                       # the same limits on both devices
+    return mont_pow_bits_plain(spec, a, exp_bits)
 
 
 def mont_inv(spec: FieldSpec, a):

@@ -1,11 +1,13 @@
-"""Build, load and launch the hand-written CUDA kernels (K1-K9).
+"""Build, load and launch the hand-written CUDA kernels (K1-K9, and the two
+whole-loop entries mont_pow of K1 and msm_finish of K5).
 
-The sources in ../csrc are compiled with ONE nvcc call into a shared
-library with a plain C interface, at first use, and loaded with ctypes:
+The sources in ../csrc are compiled at first use, one nvcc process a
+source and all of them at once, then linked into one shared library with a
+plain C interface and loaded with ctypes:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -Xptxas -v -o build/kernels/libzklaim_kernels-<key>.so
-         csrc/mont_mul.cu csrc/ntt.cu csrc/curve.cu csrc/probes.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC
+         -Xptxas -v -c -o <tmp>/<name>.o csrc/<name>.cu      (for each source)
+    nvcc -shared -o build/kernels/libzklaim_kernels-<key>.so <tmp>/*.o
 
 <key> hashes the sources and flags, so an edited source rebuilds and a
 fresh checkout builds everything on its first launch.  Nothing here
@@ -14,7 +16,8 @@ touches CUDA at import time: the CPU tests import every module.
 Every launch goes through `launch`, which passes PyTorch's current
 stream, raises if the C launcher returns a CUDA error, and counts the
 launch in LAUNCHES -- the count a run reads to show that its main path
-went through the kernels.
+went through the kernels.  The C functions are looked up and given their
+argument types once, when the library is loaded.
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ HEADERS = ("field.cuh", "rcb.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -45,23 +48,30 @@ _I = ctypes.c_int
 # kernel name -> (C symbol, argtypes without the trailing stream)
 KERNELS = {
     "mont_mul": ("zk_mont_mul", [_P, _I64, _I64, _P, _I64, _I64, _P, _I64, _I64, _I64, _I]),
+    "mont_pow": ("zk_mont_pow", [_P, _P, _I64, _P, _I, _I]),
     "ntt_local": ("zk_ntt_local", [_P, _I64, _P, _I64, _I, _I]),
     "ntt_stage": ("zk_ntt_stage", [_P, _I64, _P, _I64, _I]),
     "point_add": ("zk_point_add", [_I, _P, _I64, _I64, _P, _I64, _I64, _P, _I64, _I64, _I64]),
     "point_double": ("zk_point_double", [_I, _P, _I64, _I64, _P, _I64, _I64, _I64]),
+    "msm_finish": ("zk_msm_finish", [_I, _P, _I64, _I64, _P, _I64, _I64, _P, _I64, _I64,
+                                     _I, _I, _I, _P, _I, _I, _I]),
     # the probes of the measuring path (csrc/probes.cu)
     "mont_chain": ("zk_mont_chain", [_P, _I64, _P, _I64, _I64, _I]),
     "op_chain": ("zk_op_chain", [_I, _P, _P, _I64, _I]),
     "point_add_tiled": ("zk_point_add_tiled", [_P, _I64, _I64, _P, _I64, _I64, _P, _I64, _I64, _I64, _I64]),
     "point_add_chain": ("zk_point_add_chain", [_P, _I64, _I64, _P, _I64, _I64, _I64, _I]),
 }
-# the kernels the proving paths run, and the probes only the measuring path runs
-PATH_KERNELS = ("mont_mul", "ntt_local", "ntt_stage", "point_add", "point_double")
+# the kernels a proof must launch (mont_pow only where a key is serialized:
+# the issuer's trusted_setup; point_double only in scalar_mul / msm_ladder),
+# and the probes only the measuring path runs
+PATH_KERNELS = ("mont_mul", "mont_pow", "ntt_local", "ntt_stage", "point_add", "msm_finish")
+PROOF_KERNELS = tuple(k for k in PATH_KERNELS if k != "mont_pow")
 PROBE_KERNELS = ("mont_chain", "op_chain", "point_add_tiled", "point_add_chain")
 
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 BUILD_INFO: dict = {}
 _LIB = None
+_FUNCTIONS: dict = {}          # kernel name -> its C function, filled by library()
 
 
 def reset_launches() -> None:
@@ -88,7 +98,8 @@ def _nvcc() -> str:
 
 
 def build() -> Path:
-    """Compile csrc/*.cu into build/kernels (once per source hash)."""
+    """Compile csrc/*.cu into build/kernels (once per source hash), the
+    sources side by side."""
     key = _key()
     lib = BUILD_DIR / f"libzklaim_kernels-{key}.so"
     log = BUILD_DIR / f"libzklaim_kernels-{key}.ptxas.txt"
@@ -97,18 +108,29 @@ def build() -> Path:
                           ptxas=log.read_text() if log.exists() else "")
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *(str(CSRC / s) for s in SOURCES)]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objects = [str(Path(tmp) / (Path(s).stem + ".o")) for s in SOURCES]
+        compiles = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(CSRC / src)],
+                                     stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                    for src, obj in zip(SOURCES, objects)]
+        results = [(proc.args, *proc.communicate(), proc.returncode) for proc in compiles]
+        if all(rc == 0 for *_, rc in results):
+            out = str(Path(tmp) / "lib.so")
+            link = subprocess.run([nvcc, "-shared", "-o", out, *objects],
+                                  capture_output=True, text=True)
+            results.append((link.args, link.stdout, link.stderr, link.returncode))
+            if link.returncode == 0:
+                os.replace(out, lib)
     seconds = time.perf_counter() - t0
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
-    log.write_text(res.stderr)
-    os.replace(tmp, lib)
-    BUILD_INFO.update(path=str(lib), seconds=seconds, cached=False, ptxas=res.stderr)
+    failed = [(cmd, so, se, rc) for cmd, so, se, rc in results if rc != 0]
+    if failed:
+        raise RuntimeError("\n".join(f"nvcc failed ({rc}): {' '.join(cmd)}\n{so}\n{se}"
+                                     for cmd, so, se, rc in failed))
+    ptxas = "".join(se for _, _, se, _ in results)          # each source's lines together
+    log.write_text(ptxas)
+    BUILD_INFO.update(path=str(lib), seconds=seconds, cached=False, ptxas=ptxas)
     return lib
 
 
@@ -116,19 +138,20 @@ def library() -> ctypes.CDLL:
     global _LIB
     if _LIB is None:
         lib = ctypes.CDLL(str(build()))
-        for sym, argtypes in KERNELS.values():
+        for name, (sym, argtypes) in KERNELS.items():
             fn = getattr(lib, sym)
             fn.argtypes = argtypes + [_P]
             fn.restype = ctypes.c_int
+            _FUNCTIONS[name] = fn
         _LIB = lib
     return _LIB
 
 
 def launch(name: str, *args) -> None:
     """Launch kernel `name` on the current stream; raise on a CUDA error."""
-    sym, _ = KERNELS[name]
-    stream = torch.cuda.current_stream().cuda_stream
-    rc = getattr(library(), sym)(*args, stream)
+    if _LIB is None:
+        library()
+    rc = _FUNCTIONS[name](*args, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"kernel {name} launch failed: CUDA error {rc}")
     LAUNCHES[name] += 1

@@ -9,7 +9,12 @@ in float64, where it is exact, and rounds once to float32 as the fused
 multiply-add does.  The probes K6-K9 run at their originals' shapes and at
 small chain lengths K (the plain versions cannot run the originals' K of up
 to 120,000 steps); K6 also at the width that fills the card, the shape whose
-rate tools/mont_micro.py reports.
+rate tools/mont_micro.py reports.  The two whole-loop entries run at the
+credential path's shapes: mont_pow on 2^15 elements with e = p - 2 (the
+batched Fermat inversion of pk_to_bytes), msm_finish on the partials of four
+G1 sums and of one G2 sum at c = 8, and on one small odd shape.  Their plain
+versions are loops of hundreds of plain products or point operations and
+take seconds: `plain_once` tells a caller to run and time them once.
 
 Inputs: random field elements below p; random curve points as host
 multiples of the generator (a small pool, gathered to the lane count),
@@ -29,7 +34,12 @@ The data sheet lists no int32 peak for the H100.  Hopper issues int32 on
 half of its FP32 lanes, so the rate is taken as the FP32 peak of
 67 TFLOP/s, over 2 (an FMA counts as two operations), over 2 again:
 16.75e12 multiply-adds per second at the card's full 700 W limit.
-tools/mont_micro.py measures the rate the card sustains.
+tools/mont_micro.py measures the rate the card sustains in Montgomery
+products (K6: about 5.0e12).  The bound keeps the assumed rate: a bound is
+the least time ANY kernel could take, so it may not rest on a rate that one
+implementation reached -- a better product (fewer carry instructions, more
+products in flight) would beat a bound built on K6's rate.  chip_smoke.py
+prints the share at the measured rate beside it, as a second column.
 
 K7's steps are no Montgomery products, so its cases count single operations
 (`ops`) over the rate at which the card starts them, LANE_CLOCKS_PER_S: 132 SMs
@@ -57,6 +67,7 @@ from ..ec.hostcurve import g1_generator, g2_generator
 from ..ff import montgomery as M
 from ..ff.limbs import ints_to_limbs, to_tensor
 from ..ff.montgomery import FQ, FR
+from ..msm import pippenger as P
 from ..ntt import gpu_ntt
 from ..ntt.radix2 import get_domain
 
@@ -83,6 +94,7 @@ class Case:
     products: int                      # Montgomery products of the call
     ops: int = 0                       # other operations of the call (K7), over LANE_CLOCKS_PER_S
     extra_bytes: int = 0               # bytes moved that are no field elements
+    plain_once: bool = False           # the plain version takes seconds: run and time it once
 
 
 def bound_ms(case: Case, mad_per_s: float = INT32_MAD_PER_S) -> tuple[float, str]:
@@ -144,9 +156,10 @@ def curve_inputs(deg: int, n: int, rng: np.random.Generator, device):
 
 def kernel_cases(device, n_field: int = 1 << 15, n_ntt: int = 1 << 15,
                  n_g1: int = 1 << 16, n_g2: int = 1 << 15, seed: int = 0) -> list:
-    """The five kernels of the proving paths at the given widths (defaults:
-    the main path's; the doubling also at the MSM finish's own widths, 4 G1
-    lanes and 1 G2 lane), then the four probes (probe_cases)."""
+    """The kernels of the proving paths at the given widths (defaults: the
+    main path's; K1 also on an unaligned operand; the doubling also at 4 G1
+    lanes and 1 G2 lane, where a launch is all host), mont_pow and msm_finish at the credential path's
+    shapes (loop_cases), then the four probes (probe_cases)."""
     rng = np.random.default_rng(seed)
     cases = []
     for spec in (FR, FQ):
@@ -155,6 +168,15 @@ def kernel_cases(device, n_field: int = 1 << 15, n_ntt: int = 1 << 15,
                           lambda s=spec, a=a, b=b: M.mont_mul(s, a, b),
                           lambda s=spec, a=a, b=b: M.mont_mul_plain(s, a, b),
                           3 * n_field, n_field))
+    # the last product again on an operand 4 bytes off 16-byte alignment: K1
+    # then takes its strided scalar loads, the path of every odd view
+    buf = torch.zeros(n_field * 16 + 4, dtype=torch.int32, device=device)
+    off = buf[1 : 1 + n_field * 16].view(n_field, 16)
+    off.copy_(a)
+    cases.append(Case("mont_mul", f"K1 mont_mul {spec.name} n={n_field} unaligned operand",
+                      lambda s=spec, a=off, b=b: M.mont_mul(s, a, b),
+                      lambda s=spec, a=off, b=b: M.mont_mul_plain(s, a, b),
+                      3 * n_field, n_field))
 
     dom = get_domain(n_ntt, str(device))
     x = random_field(FR, n_ntt, rng, device).t().contiguous()     # (16, n) planes
@@ -190,7 +212,36 @@ def kernel_cases(device, n_field: int = 1 << 15, n_ntt: int = 1 << 15,
                           lambda d=deg, p=p: G.point_double_planes(d, p),
                           lambda d=deg, p=p: G.point_double_plain(d, p),
                           6 * deg * n, DOUBLE_PRODUCTS[deg] * n))
-    return cases + probe_cases(device, rng)
+    return cases + loop_cases(device, rng, n_field) + probe_cases(device, rng)
+
+
+def loop_cases(device, rng: np.random.Generator, n_pow: int = 1 << 15,
+               finishes=((1, 4, 8), (2, 1, 8), (1, 2, 4))) -> list:
+    """The whole-loop entries.  mont_pow: a^(p-2) on n_pow elements of each
+    field, zero, one and p - 1 among them; work: n_pow in and out, and
+    nbits - 1 squarings + popcount(e) products an element (the kernel's
+    chain).  msm_finish: (deg, k, c) finishes on partials drawn as
+    curve_inputs draws them (infinity, tot = head and tot = -head lanes);
+    work: both partials in, k points out; per window lane (c - 1) doublings
+    and an add, per sum and window c doublings and an add."""
+    cases = []
+    for spec in (FQ, FR):
+        a = random_field(spec, n_pow, rng, device)
+        bits = spec.exp_p_minus_2_bits
+        products = (spec.p - 2).bit_length() - 1 + int(bits.sum())
+        cases.append(Case("mont_pow", f"K1 mont_pow {spec.name} n={n_pow} e={spec.name[1]}-2",
+                          lambda s=spec, a=a, b=bits: M.mont_pow_bits(s, a, b),
+                          lambda s=spec, a=a, b=bits: M.mont_pow_bits_plain(s, a, b),
+                          2 * n_pow, products * n_pow, plain_once=True))
+    for deg, k, c in finishes:
+        W = 256 // c
+        tot, head = curve_inputs(deg, k * W, rng, device)
+        per_lane = ((c - 1) + c) * DOUBLE_PRODUCTS[deg] + 2 * ADD_PRODUCTS[deg]
+        cases.append(Case("msm_finish", f"K5 msm_finish G{deg} k={k} W={W} c={c}",
+                          lambda d=deg, t=tot, h=head, c=c, k=k: P._finish(d, t, h, c, k),
+                          lambda d=deg, t=tot, h=head, c=c, k=k: P._finish_plain(d, t, h, c, k),
+                          3 * deg * (2 * k * W + k), per_lane * k * W, plain_once=True))
+    return cases
 
 
 def probe_cases(device, rng: np.random.Generator, k_mont: int = 16, k_op: int = 16,

@@ -18,11 +18,13 @@ msm_many runs k sums as one flat batch (window w of sum i is window
 i*W + w) and one finish whose Horner ladder is k lanes wide: the finish's
 ~W*c sequential adds are paid once for all k sums, not k times.
 
-Every point add goes through gpu_curve.point_add_planes /
-point_add_halves (kernel K4 on CUDA) and every doubling of the finish --
-(c - 1) on the window totals, then W*c in the Horner ladder -- through
-gpu_curve.point_double_planes (kernel K5 on CUDA); on CPU tensors both run
-their plain versions.  The finish has the JAX package's dataflow
+Every point add of the bucket phase goes through
+gpu_curve.point_add_planes / point_add_halves (kernel K4 on CUDA, the plain
+version on CPU tensors).  The finish -- (c - 1) doublings of the window
+totals, then a Horner ladder of W*c doublings and W adds -- is `_finish`:
+on CUDA planes ONE launch of kernel msm_finish
+(gpu_curve.msm_finish_planes), on CPU planes `_finish_plain`, the loop over
+the plain doubling and add.  Both have the JAX package's dataflow
 (jaxcurve.point_double, then point_add), so where the flat pipeline runs
 on both sides the finished point matches it projectively, limb for limb.
 
@@ -42,7 +44,8 @@ import torch
 
 from ..ec import curve as C
 from ..ec.gpu_curve import (
-    point_add_halves, point_add_planes, point_double_planes, scalar_mul,
+    msm_finish_planes, point_add_halves, point_add_plain, point_add_planes,
+    point_double_plain, scalar_mul,
 )
 from ..ff import montgomery as M
 from ..ff.limbs import LIMB_BITS, NUM_LIMBS
@@ -178,9 +181,9 @@ def _window_partials(deg: int, tables: list, c: int, mark=None):
 
 
 def _dbl_k(deg: int, p: torch.Tensor, k: int) -> torch.Tensor:
-    """k complete doublings."""
+    """k complete doublings, each the plain version."""
     for _ in range(k):
-        p = point_double_planes(deg, p)
+        p = point_double_plain(deg, p)
     return p
 
 
@@ -191,17 +194,26 @@ def _neg_planes(deg: int, planes: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _finish(deg: int, tot: torch.Tensor, head: torch.Tensor, c: int, k: int) -> torch.Tensor:
-    """(3 deg, 16, k W) partials of k sums -> (3 deg, 16, k): doublings,
-    then one Horner ladder that runs the k sums side by side."""
+def _finish_plain(deg: int, tot: torch.Tensor, head: torch.Tensor, c: int, k: int) -> torch.Tensor:
+    """Plain version of kernel msm_finish, on any device: (3 deg, 16, k W)
+    partials of k sums -> (3 deg, 16, k): doublings, then one Horner ladder
+    that runs the k sums side by side, every step a plain point op."""
     W = tot.shape[-1] // k
-    window_pts = point_add_planes(deg, _dbl_k(deg, tot, c - 1), _neg_planes(deg, head))
+    window_pts = point_add_plain(deg, _dbl_k(deg, tot, c - 1), _neg_planes(deg, head))
     # (W, 3 deg, 16, k): window w of every sum, contiguous
     per_window = window_pts.view(3 * deg, NUM_LIMBS, k, W).permute(3, 0, 1, 2).contiguous()
     acc = C.infinity_planes(deg, k, tot.device)
     for w in range(W - 1, -1, -1):
-        acc = point_add_planes(deg, _dbl_k(deg, acc, c), per_window[w])
+        acc = point_add_plain(deg, _dbl_k(deg, acc, c), per_window[w])
     return acc
+
+
+def _finish(deg: int, tot: torch.Tensor, head: torch.Tensor, c: int, k: int) -> torch.Tensor:
+    """The finish of k sums: CUDA planes -> one msm_finish launch, CPU
+    planes -> _finish_plain."""
+    if tot.is_cuda:
+        return msm_finish_planes(deg, tot, head, c, k)
+    return _finish_plain(deg, tot, head, c, k)
 
 
 def _msm_chunked(deg: int, tables: list, c: int, chunk: int, k: int):

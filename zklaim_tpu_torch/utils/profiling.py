@@ -9,9 +9,11 @@ Enable with ZKLAIM_PROFILE=1 (timing lines on stderr) and
 ZKLAIM_TRACE_DIR=/path (one Chrome trace per traced region, viewable in
 chrome://tracing or Perfetto).
 
-`best_ms` and `card_label` serve bench.py and the tools: a time on the card
-is taken with CUDA events, and every printed number carries the card's name
-and power limit as nvidia-smi gives them.
+`best_ms`, `device_ms` and `card_label` serve bench.py, the tools and
+chip_smoke.py: a call's time on the card is taken with CUDA events (it holds
+the host's time between launches), the card's own time for the call with
+the replay of a captured CUDA graph, and every printed number carries the card's name and power
+limit as nvidia-smi gives them.
 """
 
 from __future__ import annotations
@@ -124,6 +126,31 @@ def best_ms(fn, device, runs: int = 3) -> float:
         torch.cuda.synchronize(device)
         best = min(best, start.elapsed_time(end))
     return best
+
+
+def device_ms(fn, calls: int = 10, reps: int = 5) -> float:
+    """Milliseconds the card itself needs for one call of fn(): `calls` calls
+    are captured into ONE CUDA graph, whose replay puts their kernels on the
+    card back to back with no host code between them, and the replay is
+    timed with CUDA events (mean of `reps` replays after a warm one).  What
+    is left of the host is a graph's own gap of about a microsecond a kernel.
+    `best_ms`, or a pair of events around plain calls, adds the host's time
+    between launches.  fn must not synchronise or read a result back."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * calls)
 
 
 @lru_cache(maxsize=None)

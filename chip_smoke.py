@@ -5,15 +5,16 @@
 
 1. Requires CUDA (exits non-zero without it) and prints the card's name
    and power limit.
-2. Builds the kernels K1-K9 and the whole-loop entries mont_pow (K1) and
-   msm_finish (K5) from zklaim_tpu_torch/csrc with nvcc, the sources side by
-   side.
+2. Builds the kernels K1-K9 and the whole-loop entries mont_pow (K1),
+   msm_tails (K4) and msm_finish (K5) from zklaim_tpu_torch/csrc with nvcc,
+   the sources side by side, and prints what ptxas says of every kernel
+   (registers, stack, spill bytes).
 3. Probes phase: the four probes of the measuring path
    (zklaim_tpu_torch.tools.mont_micro, pallas_op_micro, grid_micro,
    padd_micro: kernels K6-K9), each at its original's shape and at a width that
    fills the card; K6's wide row is the 32-bit multiply-add rate the card
    sustains.  K6-K9 must have launched.
-   Then holds each of the eleven entries against its plain PyTorch version
+   Then holds each of the twelve entries against its plain PyTorch version
    on the card, at the shapes its path gives it (K6 also at the width that
    fills the card), limb for limb and, for K7's f32fma, bit for bit
    (tolerance 0 throughout: integer arithmetic, and a plain f32fma that
@@ -39,9 +40,12 @@
    seconds, the byte sizes, the peak device memory and the launch counts.
    For each of the two paths the launch counts are set to 0 just before and
    read just after.  A proof must launch mont_mul, ntt_local, ntt_stage,
-   point_add and msm_finish (one msm_finish a finish: 2 a proof_generate)
-   and no point_double; the credential path's trusted_setup must launch
-   mont_pow, once a batched inversion.
+   point_add, msm_tails and msm_finish and no point_double; a
+   proof_generate on an imported pk exactly 2 msm_finish (one a finish),
+   3 msm_tails (one a pass: two G1 chunks and the G2 sum), 7 ntt_stage (one
+   a transform) and 87 point_add (the upsweeps, Abel trees and chunk sums);
+   the credential path's trusted_setup must launch mont_pow, once a batched
+   inversion.
 6. Holds the card against the CPU on the small circuit: the same seed must
    give the same proving key, verifying key and proof on both devices, as
    tensors and as serde bytes, and pk_from_bytes(pk_to_bytes(pk)) must
@@ -82,6 +86,9 @@ KERNEL_ROWS = {
     "point_double": ("zklaim_tpu_torch/csrc/curve.cu", "zklaim_tpu/ec/pallas_curve.py:233"),
     "mont_pow": ("zklaim_tpu_torch/csrc/mont_mul.cu",
                  "zklaim_tpu/ntt/pallas_ntt.py:63 in the loop of zklaim_tpu/ff/montgomery.py:236"),
+    "msm_tails": ("zklaim_tpu_torch/csrc/curve.cu",
+                  "zklaim_tpu/ec/pallas_curve.py:222 in the loop of "
+                  "zklaim_tpu/msm/pippenger.py:337"),
     "msm_finish": ("zklaim_tpu_torch/csrc/curve.cu",
                    "zklaim_tpu/ec/pallas_curve.py:233 and :222 in the loops of "
                    "zklaim_tpu/msm/pippenger.py:366"),
@@ -308,9 +315,11 @@ def main() -> None:
     if cred["trusted_setup_launches"]["mont_mul"] > 100:
         raise AssertionError(f"trusted_setup: the inversions' squarings are mont_pow's now, yet "
                              f"mont_mul launched {cred['trusted_setup_launches']['mont_mul']} times")
-    if cred["reprove_launches"]["msm_finish"] != 2:
-        raise AssertionError(f"proof_generate: one msm_finish a finish, two finishes expected, "
-                             f"got {cred['reprove_launches']['msm_finish']}")
+    # one msm_finish a finish, one msm_tails a pass, one ntt_stage a transform
+    per_proof = {"msm_finish": 2, "msm_tails": 3, "ntt_stage": 7, "point_add": 87}
+    got = {k: cred["reprove_launches"][k] for k in per_proof}
+    if got != per_proof:
+        raise AssertionError(f"proof_generate on an imported pk launched {got}, expected {per_proof}")
     for k in K.PATH_KERNELS + ("point_double",):
         rows[k]["launches"] = launches[k]
         rows[k]["launches_proof_generate"] = cred["reprove_launches"][k]

@@ -1,5 +1,5 @@
-"""Kernels K1-K9, mont_pow and msm_finish against their plain versions on the
-card (needs CUDA).
+"""Kernels K1-K9, mont_pow, msm_tails and msm_finish against their plain
+versions on the card (needs CUDA).
 
 Run on a machine with an NVIDIA GPU (no jax needed there, hence
 --noconftest):
@@ -89,6 +89,19 @@ def test_wrappers_reject_bad_operands(cuda):
                 lambda: msm_finish_planes(1, t.repeat(1, 1, 512), t.repeat(1, 1, 512), 8, 512)):
         with pytest.raises(ValueError):                                    # last: shared memory
             bad()
+    from zklaim_tpu_torch.ec.gpu_curve import msm_tails_planes
+
+    lv = [torch.zeros((3, 16, 1 << (2 - t)), dtype=torch.int32, device=cuda) for t in range(3)]
+    m = torch.zeros(5, dtype=torch.int64, device=cuda)
+    for bad in (lambda: msm_tails_planes(1, lv, m.cpu(), 2),                 # CPU prefix lengths
+                lambda: msm_tails_planes(1, lv, m.int(), 2),                 # not int64
+                lambda: msm_tails_planes(1, lv, m.view(5, 1), 2),            # not a vector
+                lambda: msm_tails_planes(1, lv[:2], m, 2),                   # a level missing
+                lambda: msm_tails_planes(1, lv[::-1], m, 2),                 # widths wrong
+                lambda: msm_tails_planes(2, lv, m, 2),                       # 3 planes: no G2 point
+                lambda: msm_tails_planes(1, [x.long() for x in lv], m, 2)):
+        with pytest.raises(ValueError):
+            bad()
 
 
 def test_mont_mul_and_mont_pow_on_unaligned_and_strided_operands(cuda):
@@ -152,6 +165,49 @@ def test_msm_finish_on_strided_partials_and_many_sums(cuda):
     assert max_abs_err(_finish(1, tot, head, 16, 20), _finish_plain(1, tot, head, 16, 20)) == 0
 
 
+def test_msm_tails_on_strided_levels(cuda):
+    """msm_tails takes each level's own plane and row strides (slices of
+    wider plane sets), prefix lengths 0, 2^nb and values with bits above nb,
+    and more lanes than a CTA holds; it equals _tails_plain on contiguous
+    copies, G1 and G2, one launch a call."""
+    import numpy as np
+
+    from zklaim_tpu_torch.ec.gpu_curve import msm_tails_planes
+    from zklaim_tpu_torch.kernels.cases import tail_inputs
+    from zklaim_tpu_torch.msm.pippenger import _tails_plain
+
+    rng = np.random.default_rng(12)
+    for deg in (1, 2):
+        levels, m, nb = tail_inputs(deg, 2, 4, 1 << 10, rng, cuda)
+        views = [torch.cat([lv[..., :1], lv, lv[..., :2]], dim=2)[..., 1 : 1 + lv.shape[2]]
+                 for lv in levels]                             # row stride w + 3, not w
+        assert all(torch.equal(v, lv) for v, lv in zip(views, levels))
+        assert not views[0].is_contiguous()
+        edge = torch.tensor([0, 1 << nb, (1 << nb) - 1, (1 << (nb + 1)) + 3], device=cuda)
+        mm = torch.cat([m, edge])
+        before = K.LAUNCHES["msm_tails"]
+        got = msm_tails_planes(deg, views, mm, nb)
+        assert K.LAUNCHES["msm_tails"] == before + 1
+        want = _tails_plain(deg, [v.contiguous() for v in views], mm, nb)
+        assert max_abs_err(got, want) == 0, deg
+
+
+def test_point_add_g2_on_strided_views(cuda):
+    """K4's G2 add runs a lane on a pair of threads: slices of a wider plane
+    set, lane counts that leave a pair or a warp half empty (1, 15, 17, 33,
+    1000), and an output aliasing nothing all equal the plain add."""
+    import numpy as np
+
+    from zklaim_tpu_torch.ec.gpu_curve import point_add_plain, point_add_planes
+    from zklaim_tpu_torch.kernels.cases import curve_inputs
+
+    p, q = curve_inputs(2, 1100, np.random.default_rng(6), cuda)
+    for n in (1, 15, 17, 33, 1000):
+        pv, qv = p[..., 7 : 7 + n], q[..., 50 : 50 + n]
+        got = point_add_planes(2, pv, qv)
+        assert max_abs_err(got, point_add_plain(2, pv.contiguous(), qv.contiguous())) == 0, n
+
+
 def test_point_double_on_strided_views(cuda):
     """K5 takes plane and row strides: a slice of a wider plane set doubles
     like its contiguous copy, and 2P equals P + P as points."""
@@ -183,6 +239,7 @@ def test_credential_flow_statuses_on_card(cuda):
     res = run_credential_path(cuda, num_payloads=0, requests=1, seed=11)
     assert res["statuses_ok"], (res["status"], res["expected"])
     assert res["reprove_launches"]["msm_finish"] == 2
+    assert res["reprove_launches"]["msm_tails"] >= 2          # one a pass: a G1 chunk or more, G2
     assert res["reprove_launches"]["point_double"] == 0
     assert res["reprove_launches"]["mont_pow"] == 0
     assert 1 <= res["trusted_setup_launches"]["mont_pow"] <= 5

@@ -83,3 +83,80 @@ def test_roundtrips_at_512():
     x = _mont([random.Random(11).randrange(R) for _ in range(512)])
     assert torch.equal(dom.intt(dom.ntt(x)), x)
     assert torch.equal(dom.coset_intt(dom.coset_ntt(x)), x)
+
+
+# ---------------------------------------------------------------------------
+# K3's passes: the global stages in passes of columns
+# ---------------------------------------------------------------------------
+
+# (tile, stages a pass, columns a CTA): small tiles, so that several passes
+# and several columns a CTA run at these sizes; the kernel takes any such split
+SPLITS = [(4, 3, 4), (8, 2, 2), (2, 4, 1), (16, 5, 8)]
+
+
+def _split(n, tile, per_pass, columns):
+    """(s0, G, C) passes over the stages with half >= tile."""
+    lt, k = min(tile, n).bit_length() - 1, n.bit_length() - 1
+    return [(s0, min(per_pass, k - s0), min(columns, 1 << lt)) for s0 in range(lt, k, per_pass)]
+
+
+def _planes(n, seed):
+    return _mont([random.Random(seed).randrange(R) for _ in range(n)]).t().contiguous()
+
+
+@pytest.mark.parametrize("log_n", range(6, 13))
+def test_global_columns_plain_matches_ntt_plain(log_n):
+    """ntt_global_columns_plain -- the kernel's passes, CTAs, pair and
+    twiddle indices -- equals ntt_plain over the same stages, forward and
+    inverse, for every split, and ntt_global on CPU planes is it."""
+    n = 1 << log_n
+    dom = NTTDomain(n, "cpu")
+    x = _planes(n, log_n)
+    for tile, per_pass, columns in SPLITS:
+        passes = _split(n, tile, per_pass, columns)
+        lt = min(tile, n).bit_length() - 1
+        for tw in (dom.tw_flat, dom.tw_inv_flat):
+            got = gpu_ntt.ntt_global_columns_plain(x, tw, tile, passes)
+            assert torch.equal(got, gpu_ntt.ntt_plain(x, tw, range(lt, log_n))), (tile, passes)
+    assert len(_split(n, 4, 3, 4)) == -(-(log_n - 2) // 3)
+    for tile in (4, 32):                                  # global_passes' own split
+        lt = min(tile, n).bit_length() - 1
+        assert torch.equal(gpu_ntt.ntt_global(x, dom.tw_flat, tile),
+                           gpu_ntt.ntt_plain(x, dom.tw_flat, range(lt, log_n)))
+
+
+@pytest.mark.parametrize("log_n", [6, 12])
+def test_column_passes_transform_matches_jax(dom64, log_n):
+    """K2's stages below a tile of 4, then K3's in passes of at most 3
+    stages on CTAs of up to 4 columns: the whole transform equals the JAX
+    package's NTTDomain.ntt (2^6 reuses the module's domain; 2^12 compiles
+    one more)."""
+    n = 1 << log_n
+    jd = dom64[0] if n == 64 else JR.NTTDomain(n)
+    dom = NTTDomain(n, "cpu")
+    vals = [random.Random(12).randrange(R) for _ in range(n)]
+    x = _mont(vals)
+    planes = x.index_select(0, dom.bitrev).t().contiguous()
+    passes = _split(n, 4, 3, 4)
+    local = gpu_ntt.ntt_plain(planes, dom.tw_flat, range(2))
+    got = gpu_ntt.ntt_global_columns_plain(local, dom.tw_flat, 4, passes).t()
+    want = jd.ntt(jnp.asarray(x.numpy().astype(np.uint32)))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want).astype(np.int32))
+
+
+def test_global_passes_at_the_paths_sizes():
+    """One launch a transform at the credential path's 2^15 (5 stages, at
+    least 132 CTAs), two at the bench's 2^20 and 2^22, at most 64 KiB of
+    shared memory a CTA; none where every stage fits a tile."""
+    assert gpu_ntt.global_passes(1 << 15) == [(10, 5, 4)]
+    assert (1 << 15) // (4 << 5) >= gpu_ntt.MIN_CTAS
+    assert gpu_ntt.global_passes(1 << 20) == [(10, 5, 32), (15, 5, 32)]
+    assert gpu_ntt.global_passes(1 << 22) == [(10, 6, 32), (16, 6, 32)]
+    for log_n in range(11, 23):
+        passes = gpu_ntt.global_passes(1 << log_n)
+        assert [s0 for s0, _, _ in passes] == [10 + sum(g for _, g, _ in passes[:i])
+                                               for i in range(len(passes))]
+        assert sum(g for _, g, _ in passes) == log_n - 10
+        for s0, g, c in passes:
+            assert (c << g) * 32 <= 64 * 1024 and g <= gpu_ntt.MAX_PASS_STAGES
+    assert gpu_ntt.global_passes(1 << 10) == [] and gpu_ntt.global_passes(512) == []

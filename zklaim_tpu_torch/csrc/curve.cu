@@ -11,18 +11,50 @@
 // K4 point_add
 // Replaces: zklaim_tpu/ec/pallas_curve.py:_add_kernel, launched through
 // _padd_soa (point_add_planes) and _padd_halves_soa (point_add_halves).
-// One thread per lane, everything in registers.  The formula is rcb.cuh's
-// rcb_add, the dataflow of _rcb_add (pallas_curve.py:143-164), so the
-// projective outputs are bit-identical to jaxcurve.point_add; the probes of
-// probes.cu call the same function.  With per-operand strides the halves
-// mode of the MSM upsweep -- lo half + hi half of one plane set -- is one
-// launch on two strided views, with no copy and no second kernel.
+// The formula is rcb.cuh's rcb_add_f, the dataflow of _rcb_add
+// (pallas_curve.py:143-164), so the projective outputs are bit-identical to
+// jaxcurve.point_add; the probes of probes.cu call the same function.  With
+// per-operand strides the halves mode of the MSM upsweep -- lo half + hi
+// half of one plane set -- is one launch on two strided views, with no copy
+// and no second kernel.  G1: one thread per lane, everything in registers.
+// G2: one thread a lane kept the six Fq2 inputs (96 registers) and the
+// temporaries live and spilled at 255 registers; so a lane runs on a PAIR of
+// adjacent threads (field.cuh:Fq2Pair), each holding one Fq component of
+// every value: sums stay in the thread, a product swaps the partner's
+// components by __shfl_xor_sync and takes two of the schoolbook's four Fq
+// products, 28 a thread and 56 a lane where Karatsuba needs 42.
 // What bounds it on the card: integer multiply throughput (12 Fq
-// multiplies for G1; 12 Fq2 = 36 Fq multiplies for G2 plus a Fq2 constant
-// multiply per 3b) and registers: a G2 add keeps the six input
-// coordinates (96 registers) plus temporaries live.  The bytes moved
-// (6 x 64 B in, 3 x 64 B out per coordinate component) are small beside
-// the arithmetic.
+// multiplies a G1 lane; 42 at least a G2 lane) and registers.  The bytes
+// moved (6 x 64 B in, 3 x 64 B out per coordinate component) are small
+// beside the arithmetic.
+//
+// msm_tails (K4's second entry)
+// Replaces: the bucket-tail loop of zklaim_tpu/msm/pippenger.py:337-343,
+// which for each of the nb + 1 upsweep levels gathers one node a tail lane,
+// adds it (K4) and keeps the sum where bit t of the lane's prefix length m
+// is set; as eager calls that is 22 rounds of a bit reversal, a gather, a K4
+// launch and a select a pass, about a thousand small launches.  Here a
+// pass's whole stage is ONE launch.  Skipping a level whose bit is clear is
+// what the select chose, and the adds run in the same order with the same
+// dataflow, so the output matches the loop limb for limb.  Each tail lane
+// is a chain of popcount(m) dependent adds, on 16,512 (G1, four sums) or
+// 4,128 (G2) lanes: one thread a lane would leave most of the card idle
+// behind fe_mul's latency, and a G2 lane spills.  So the add runs as
+// msm_finish runs it: a schedule (ec/rcb_schedule.py:tails_schedule, the
+// add alone) over a group of 6 (G1) or 24 (G2) threads, a product each a
+// round, about 99k threads either way.  Each group walks the set bits of its
+// own m, lowest first: every group of a warp runs the same steps on its own
+// file, whatever level it is on, so a warp pays the largest popcount of its
+// groups, not the 22 levels.  The column read at level t is
+// rev_{nb-t}(clamp((m >> t) - 1, 0, 2^(nb-t) - 1)), the reversal by
+// __brevll and a shift.  The levels reach the kernel as a by-value table of
+// (base, plane stride, limb stride), one row a level, in the launch's
+// parameters: the upsweep's levels stay separate tensors, views included,
+// and no table is copied to the card before the launch.
+// What bounds it: the dependent chain of a lane (two or three product steps
+// and eight or so linear steps an add, popcount(m) adds) against the card's
+// multiply throughput once all 132 SMs hold groups; bytes are small (one
+// node a set bit and one point a lane).
 //
 // K5 point_double
 // Replaces: zklaim_tpu/ec/pallas_curve.py:_double_kernel, launched through
@@ -71,8 +103,9 @@
 // What bounds it: the latency of one warp's dependent chain (about 1 us a
 // product step, as K6 measures fe_mul at low occupancy, and a fraction of
 // that a linear step); bytes and throughput are nothing (one CTA).
-// ptxas (CUDA 12.8, sm_90a): msm_finish 63 registers, no spills; K4 108 (G1)
-// and 255 with 128 bytes spilled (G2), K5 80 / 194.
+// ptxas (CUDA 12.8, sm_90a), registers: K4 108 (G1) and 144 (G2 on a pair
+// of threads; one thread a lane took 255 and spilled 128 bytes), msm_tails
+// 56, msm_finish 63, K5 80 / 194; no kernel spills or keeps a stack frame.
 #include <cuda_runtime.h>
 
 #include "field.cuh"
@@ -83,23 +116,48 @@ __global__ void point_add_kernel(const int32_t* __restrict__ p, int64_t p_ps, in
                                  const int32_t* __restrict__ q, int64_t q_ps, int64_t q_ls,
                                  int32_t* __restrict__ out, int64_t o_ps, int64_t o_ls,
                                  int64_t n) {
-  typedef CurveField<DEG> Fd;
-  typedef typename Fd::T T;
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const T x1 = Fd::load(p, p_ps, p_ls, 0, i);
-  const T y1 = Fd::load(p, p_ps, p_ls, 1, i);
-  const T z1 = Fd::load(p, p_ps, p_ls, 2, i);
-  const T x2 = Fd::load(q, q_ps, q_ls, 0, i);
-  const T y2 = Fd::load(q, q_ps, q_ls, 1, i);
-  const T z2 = Fd::load(q, q_ps, q_ls, 2, i);
+  if constexpr (DEG == 2) {
+    // a lane over a pair of threads; thread h loads and stores plane 2 c + h
+    // of coordinate c.  A pair past the end recomputes lane n - 1 and stores
+    // nothing: every thread of the warp reaches the shuffles.
+    const int64_t lane = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 1;
+    const int h = threadIdx.x & 1;
+    const bool live = lane < n;
+    const int64_t i = live ? lane : n - 1;
+    const Fe x1 = fe_load(p + h * p_ps, p_ls, 1, i);
+    const Fe y1 = fe_load(p + (2 + h) * p_ps, p_ls, 1, i);
+    const Fe z1 = fe_load(p + (4 + h) * p_ps, p_ls, 1, i);
+    const Fe x2 = fe_load(q + h * q_ps, q_ls, 1, i);
+    const Fe y2 = fe_load(q + (2 + h) * q_ps, q_ls, 1, i);
+    const Fe z2 = fe_load(q + (4 + h) * q_ps, q_ls, 1, i);
 
-  T x3, y3, z3;
-  rcb_add<DEG>(x1, y1, z1, x2, y2, z2, x3, y3, z3);
+    Fe x3, y3, z3;
+    rcb_add_f<Fq2Pair>(x1, y1, z1, x2, y2, z2, x3, y3, z3);
 
-  Fd::store(out, o_ps, o_ls, 0, i, x3);
-  Fd::store(out, o_ps, o_ls, 1, i, y3);
-  Fd::store(out, o_ps, o_ls, 2, i, z3);
+    if (live) {
+      fe_store(out + h * o_ps, o_ls, 1, i, x3);
+      fe_store(out + (2 + h) * o_ps, o_ls, 1, i, y3);
+      fe_store(out + (4 + h) * o_ps, o_ls, 1, i, z3);
+    }
+  } else {
+    typedef CurveField<DEG> Fd;
+    typedef typename Fd::T T;
+    const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    const T x1 = Fd::load(p, p_ps, p_ls, 0, i);
+    const T y1 = Fd::load(p, p_ps, p_ls, 1, i);
+    const T z1 = Fd::load(p, p_ps, p_ls, 2, i);
+    const T x2 = Fd::load(q, q_ps, q_ls, 0, i);
+    const T y2 = Fd::load(q, q_ps, q_ls, 1, i);
+    const T z2 = Fd::load(q, q_ps, q_ls, 2, i);
+
+    T x3, y3, z3;
+    rcb_add<DEG>(x1, y1, z1, x2, y2, z2, x3, y3, z3);
+
+    Fd::store(out, o_ps, o_ls, 0, i, x3);
+    Fd::store(out, o_ps, o_ls, 1, i, y3);
+    Fd::store(out, o_ps, o_ls, 2, i, z3);
+  }
 }
 
 template <int DEG>
@@ -129,7 +187,8 @@ extern "C" int zk_point_add(int deg,
                             long long n, void* stream) {
   if (n <= 0) return 0;
   const int threads = 128;
-  const unsigned blocks = (unsigned)((n + threads - 1) / threads);
+  const long long per_lane = deg == 2 ? 2 : 1;          // G2: a pair of threads a lane
+  const unsigned blocks = (unsigned)((per_lane * n + threads - 1) / threads);
   cudaStream_t s = (cudaStream_t)stream;
   const int32_t* pp = (const int32_t*)p;
   const int32_t* pq = (const int32_t*)q;
@@ -364,5 +423,112 @@ extern "C" int zk_msm_finish(int deg,
   msm_finish_kernel<<<1, warps * 32, bytes, (cudaStream_t)stream>>>(
       (const int32_t*)tot, t_ps, t_ls, (const int32_t*)head, h_ps, h_ls,
       (int32_t*)out, o_ps, o_ls, 3 * deg, k, W, c, (const uint32_t*)sched, sched_words);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// msm_tails
+// ---------------------------------------------------------------------------
+
+#define TAIL_THREADS 256
+#define TAIL_MAX_LEVELS 32
+
+// the upsweep levels, by value in the launch: base pointer, plane stride and
+// limb (row) stride of level t (3 x 32 x 8 = 768 bytes of parameters)
+struct TailLevels {
+  const int32_t* base[TAIL_MAX_LEVELS];
+  int64_t ps[TAIL_MAX_LEVELS];
+  int64_t ls[TAIL_MAX_LEVELS];
+};
+
+// One group of g threads a tail lane, units = (TAIL_THREADS / 32) (32 / g)
+// lanes a CTA, adjacent lanes in one warp.  The group's file starts as the
+// schedule's constants (acc = infinity); for each set bit t of the lane's m,
+// lowest first, the members fetch component `member` of the node at column
+// rev_{nb-t}(clamp((m >> t) - 1, 0, 2^(nb-t) - 1)) of level t into the
+// addend slots and the group runs the add's steps.
+__global__ void __launch_bounds__(TAIL_THREADS)
+msm_tails_kernel(const TailLevels lv, int nb, const int64_t* __restrict__ m, int64_t lanes,
+                 int32_t* __restrict__ out, int64_t o_ps, int64_t o_ls, int nc,
+                 const uint32_t* __restrict__ sched, int sched_words) {
+  extern __shared__ uint32_t smem[];
+  const int tid = threadIdx.x;
+  uint32_t* prog = smem;
+  uint32_t* files = prog + sched_words;
+  for (int j = tid; j < sched_words; j += blockDim.x) prog[j] = sched[j];
+  __syncthreads();
+
+  const int g = prog[FIN_G], ns = prog[FIN_NS], nconst = prog[FIN_NCONST];
+  const int sadd = prog[FIN_SADD];
+  const uint32_t* consts = prog + FIN_HDR;
+  const uint32_t* add_steps = consts + 9 * nconst + prog[FIN_SDBL] * g;
+  const int per_warp = 32 / g;
+  const int group = (tid & 31) / g, member = (tid & 31) % g;
+  const bool seated = group < per_warp;
+  const int unit = (tid >> 5) * per_warp + group;
+  const int64_t lane = (int64_t)blockIdx.x * ((blockDim.x >> 5) * per_warp) + unit;
+  const bool on = seated && lane < lanes;
+  const bool point = on && member < nc;             // this thread moves component `member`
+  uint32_t* file = files + (seated ? unit : 0) * ns * 8;
+  const int64_t mi = on ? m[lane] : 0;
+  uint64_t bits = (uint64_t)mi & ((2ull << nb) - 1);  // bits above nb name no level
+  const uint32_t q_slot = point ? prog[FIN_Q + member] : 0;
+  if (on) {
+    for (int j = member; j < nconst; j += g) {
+      const uint32_t* cj = consts + 9 * j;
+#pragma unroll
+      for (int w = 0; w < 8; w++) file[w * ns + cj[0]] = cj[1 + w];
+    }
+  }
+  __syncwarp();
+  // Each group walks its own set bits; the warp runs until its last group is
+  // done.  Groups on different levels run the same steps on their own
+  // files, so they do not diverge.
+  while (__any_sync(0xffffffffu, bits != 0)) {
+    const bool act = bits != 0;
+    if (act && point) {
+      const int t = __ffsll((long long)bits) - 1;
+      const int w = nb - t;
+      const int64_t top = ((int64_t)1 << w) - 1;
+      int64_t nat = (mi >> t) - 1;
+      nat = nat < 0 ? 0 : (nat > top ? top : nat);
+      const int64_t col = w > 0 ? (int64_t)(__brevll((unsigned long long)nat) >> (64 - w)) : nat;
+      slot_store(file, ns, q_slot, fe_load(lv.base[t] + member * lv.ps[t], lv.ls[t], 1, col));
+    }
+    __syncwarp();
+    run_steps(add_steps, sadd, g, file, ns, member, act);
+    bits &= bits - 1;
+  }
+  if (point) {
+    fe_store(out + member * o_ps, o_ls, 1, lane, slot_load(file, ns, prog[FIN_ACC + member]));
+  }
+}
+
+// levels: nlevels (base, plane stride, limb stride) triples in host memory;
+// m: lanes int64 prefix lengths; g, slots: the schedule's group and file size.
+extern "C" int zk_msm_tails(int deg, const long long* levels, int nlevels,
+                            const void* m, long long lanes,
+                            void* out, long long o_ps, long long o_ls,
+                            const void* sched, int sched_words, int g, int slots,
+                            void* stream) {
+  if (lanes <= 0) return 0;
+  if ((deg != 1 && deg != 2) || nlevels < 1 || nlevels > TAIL_MAX_LEVELS ||
+      sched_words < FIN_HDR || slots <= 0 || g < 3 * deg || g > 32) {
+    return (int)cudaErrorInvalidValue;
+  }
+  TailLevels lv;
+  for (int t = 0; t < TAIL_MAX_LEVELS; t++) {
+    const bool given = t < nlevels;
+    lv.base[t] = given ? (const int32_t*)levels[3 * t] : nullptr;
+    lv.ps[t] = given ? levels[3 * t + 1] : 0;
+    lv.ls[t] = given ? levels[3 * t + 2] : 0;
+  }
+  const int units = (TAIL_THREADS / 32) * (32 / g);
+  const size_t bytes = 4 * ((size_t)sched_words + (size_t)units * slots * 8);
+  if (bytes > 48 * 1024) return (int)cudaErrorInvalidValue;
+  const long long blocks = (lanes + units - 1) / units;
+  msm_tails_kernel<<<(unsigned)blocks, TAIL_THREADS, bytes, (cudaStream_t)stream>>>(
+      lv, nlevels - 1, (const int64_t*)m, lanes, (int32_t*)out, o_ps, o_ls, 3 * deg,
+      (const uint32_t*)sched, sched_words);
   return (int)cudaGetLastError();
 }

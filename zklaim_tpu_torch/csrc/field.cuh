@@ -310,3 +310,54 @@ struct CurveField<2> {
     fe_store(base + (2 * coord + 1) * plane_stride, limb_stride, 1, i, a.c1);
   }
 };
+
+// ---------------------------------------------------------------------------
+// Fq2 over a PAIR of threads (lanes 2i and 2i + 1 of a warp): the thread
+// with h = threadIdx.x & 1 holds component h of every value, so a G2 add
+// keeps eight registers a value where CurveField<2> keeps sixteen.  Sums are
+// component-wise and stay in the thread; a product fetches the partner's
+// components with __shfl_xor_sync and each thread takes two of the
+// schoolbook's four Fq products: c0 = a0 b0 - a1 b1 (h = 0), c1 = a0 b1 +
+// a1 b0 (h = 1).  Every Fq operation returns the canonical residue, so the
+// components are those of fe2_mul's Karatsuba limb for limb.  Both threads
+// of every pair must be present (no early exit): the shuffles name the
+// whole warp.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ Fe fe_partner(const Fe& a) {
+  Fe r;
+#pragma unroll
+  for (int j = 0; j < 8; j++) r.v[j] = __shfl_xor_sync(0xffffffffu, a.v[j], 1);
+  return r;
+}
+
+// c ? a : b word by word: a value, so neither operand needs an address (a
+// conditional on the two Fe lvalues puts both in local memory)
+__device__ __forceinline__ Fe fe_select(bool c, const Fe& a, const Fe& b) {
+  Fe r;
+#pragma unroll
+  for (int j = 0; j < 8; j++) r.v[j] = c ? a.v[j] : b.v[j];
+  return r;
+}
+
+struct Fq2Pair {
+  typedef Fe T;
+  static __device__ __forceinline__ T add(const T& a, const T& b) { return fe_add<ZK_FQ>(a, b); }
+  static __device__ __forceinline__ T sub(const T& a, const T& b) { return fe_sub<ZK_FQ>(a, b); }
+  static __device__ __forceinline__ T dbl(const T& a) { return fe_dbl<ZK_FQ>(a); }
+  // a_h b_h' products of the component pair, given the partner's a_o, b_o
+  static __device__ __forceinline__ T mul_parts(const T& a, const T& ao, const T& b,
+                                                const T& bo) {
+    const bool h = threadIdx.x & 1;
+    const Fe p = fe_mul<ZK_FQ>(fe_select(h, ao, a), b);      // a0 b0 | a0 b1
+    const Fe q = fe_mul<ZK_FQ>(fe_select(h, a, ao), bo);     // a1 b1 | a1 b0
+    return h ? fe_add<ZK_FQ>(p, q) : fe_sub<ZK_FQ>(p, q);
+  }
+  static __device__ __forceinline__ T mul(const T& a, const T& b) {
+    return mul_parts(a, fe_partner(a), b, fe_partner(b));
+  }
+  static __device__ __forceinline__ T mul_b3(const T& x) {
+    const int h = threadIdx.x & 1;
+    return mul_parts(x, fe_partner(x), fe_const(ZK_B3_G2[h]), fe_const(ZK_B3_G2[h ^ 1]));
+  }
+};

@@ -10,21 +10,22 @@
 //
 // K4 and K5 (curve.cu) and the probes K8 and K9 (probes.cu) call these
 // functions, so a probe times exactly the arithmetic the production kernels
-// run.  (msm_finish runs the same two formulas as a schedule of Fq steps,
-// ec/rcb_schedule.py.)  The outputs may alias the inputs: every input is
+// run; K4's G2 add runs rcb_add_f on Fq2Pair, the same dataflow over a pair
+// of threads.  (msm_finish and msm_tails run the same formulas as a schedule
+// of Fq steps, ec/rcb_schedule.py.)  The outputs may alias the inputs: every input is
 // read before the first output is written.
 #pragma once
 
 #include "field.cuh"
 
-template <int DEG>
-__device__ __forceinline__ void rcb_add(
-    const typename CurveField<DEG>::T& x1, const typename CurveField<DEG>::T& y1,
-    const typename CurveField<DEG>::T& z1, const typename CurveField<DEG>::T& x2,
-    const typename CurveField<DEG>::T& y2, const typename CurveField<DEG>::T& z2,
-    typename CurveField<DEG>::T& x3, typename CurveField<DEG>::T& y3,
-    typename CurveField<DEG>::T& z3) {
-  typedef CurveField<DEG> Fd;
+// The add over any curve-field type Fd (T, add, sub, dbl, mul, mul_b3):
+// CurveField<1> and CurveField<2> (one thread a lane), Fq2Pair (a G2 lane
+// over two threads, each holding one Fq component of every value).
+template <class Fd>
+__device__ __forceinline__ void rcb_add_f(
+    const typename Fd::T& x1, const typename Fd::T& y1, const typename Fd::T& z1,
+    const typename Fd::T& x2, const typename Fd::T& y2, const typename Fd::T& z2,
+    typename Fd::T& x3, typename Fd::T& y3, typename Fd::T& z3) {
   typedef typename Fd::T T;
   const T t0 = Fd::mul(x1, x2);
   const T t1 = Fd::mul(y1, y2);
@@ -43,6 +44,16 @@ __device__ __forceinline__ void rcb_add(
   x3 = Fd::sub(Fd::mul(t3, wmn), Fd::mul(t4, bv));
   y3 = Fd::add(Fd::mul(wpn, wmn), Fd::mul(m, bv));
   z3 = Fd::add(Fd::mul(t4, wpn), Fd::mul(t3, m));
+}
+
+template <int DEG>
+__device__ __forceinline__ void rcb_add(
+    const typename CurveField<DEG>::T& x1, const typename CurveField<DEG>::T& y1,
+    const typename CurveField<DEG>::T& z1, const typename CurveField<DEG>::T& x2,
+    const typename CurveField<DEG>::T& y2, const typename CurveField<DEG>::T& z2,
+    typename CurveField<DEG>::T& x3, typename CurveField<DEG>::T& y3,
+    typename CurveField<DEG>::T& z3) {
+  rcb_add_f<CurveField<DEG>>(x1, y1, z1, x2, y2, z2, x3, y3, z3);
 }
 
 template <int DEG>

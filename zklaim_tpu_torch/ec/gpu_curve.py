@@ -1,5 +1,6 @@
 """Complete point add and doubling on (3 deg, 16, n) limb planes, and the
-MSM finish built from them: kernels K4 and K5 (point_double, msm_finish).
+MSM stages built from them: kernels K4 (point_add, msm_tails) and K5
+(point_double, msm_finish).
 
 Counterpart of zklaim_tpu/ec/pallas_curve.py (point_add_planes,
 point_add_halves, point_double).  A point batch of width n is one int32
@@ -18,13 +19,19 @@ batched double-and-add ladder, each step one K5, one K4 and a select.
 doublings and the Horner ladder of k sums -- as ONE launch of kernel
 msm_finish, CUDA tensors only; its plain version is
 msm.pippenger._finish_plain.
+
+`msm_tails_planes` (K4's second entry) is the whole bucket-tail stage of a
+pass -- for every tail lane one add per set bit of its prefix length, from
+the upsweep levels -- as ONE launch of kernel msm_tails, CUDA tensors only;
+its plain version is msm.pippenger._tails_plain.
 """
 
 from __future__ import annotations
 
-import torch
-
+import ctypes
 from functools import lru_cache
+
+import torch
 
 from .. import kernels as K
 from ..ff.limbs import LIMB_BITS, NUM_LIMBS
@@ -117,13 +124,14 @@ def scalar_mul(deg: int, planes: torch.Tensor, scalars: torch.Tensor) -> torch.T
 
 FINISH_SHARED_BYTES = 227 * 1024     # what a CTA can opt in to (csrc/curve.cu:FIN_SHARED_MAX)
 FINISH_MAX_WARPS = 16                # csrc/curve.cu:FIN_THREADS / 32
+TAILS_MAX_LEVELS = 32                # csrc/curve.cu:TAIL_MAX_LEVELS
 
 
 @lru_cache(maxsize=None)
-def _finish_schedule_on(deg: int, device: str) -> tuple:
-    """(packed schedule on the device, its group size, its slot count),
-    uploaded once."""
-    sched = rcb_schedule.finish_schedule(deg)
+def _schedule_on(build, deg: int, device: str) -> tuple:
+    """(the packed schedule build(deg) on the device, its group size, its
+    slot count), uploaded once."""
+    sched = build(deg)
     words = torch.from_numpy(rcb_schedule.pack(sched).view("int32").copy())   # the same bits
     return words.to(device), sched["g"], sched["slots"]
 
@@ -142,7 +150,7 @@ def msm_finish_planes(deg: int, tot: torch.Tensor, head: torch.Tensor, c: int,
     if k < 1 or tot.shape != head.shape or tot.shape[2] != k * W or tot.device != head.device:
         raise ValueError(f"msm_finish: {k} sums of {W} windows with partials "
                          f"{tuple(tot.shape)} and {tuple(head.shape)}")
-    sched, g, slots = _finish_schedule_on(deg, str(tot.device))
+    sched, g, slots = _schedule_on(rcb_schedule.finish_schedule, deg, str(tot.device))
     per_warp = 32 // g
     warps = min(FINISH_MAX_WARPS, max(k, -(-k * W // per_warp)))        # as the launcher does
     need = 4 * (sched.numel() + 3 * deg * 8 * k * W + warps * per_warp * slots * 8)
@@ -155,4 +163,37 @@ def msm_finish_planes(deg: int, tot: torch.Tensor, head: torch.Tensor, c: int,
              head.data_ptr(), head.stride(0), head.stride(1),
              out.data_ptr(), out.stride(0), out.stride(1),
              k, W, c, sched.data_ptr(), sched.numel(), g, slots)
+    return out
+
+
+def msm_tails_planes(deg: int, levels: list, m: torch.Tensor, nb: int) -> torch.Tensor:
+    """The bucket-tail prefixes of a flat batch of 2^nb lanes in one launch.
+    levels: the nb + 1 upsweep levels, level t (3 deg, 16, 2^(nb-t)) planes
+    (any plane and row strides); m: (L,) int64 prefix lengths.  -> (3 deg,
+    16, L) planes: lane i is the sum, lowest level first, of the node of
+    each level t whose bit of m[i] is set, limb for limb what
+    pippenger._tails_plain gives.  CUDA tensors only."""
+    if not m.is_cuda:
+        raise ValueError(f"msm_tails m: expected a CUDA tensor, got {m.device}")
+    if m.dtype != torch.int64 or m.dim() != 1 or not m.is_contiguous():
+        raise ValueError(f"msm_tails: m must be a contiguous (L,) int64 vector, got "
+                         f"{m.dtype} {tuple(m.shape)}")
+    if not 0 <= nb < TAILS_MAX_LEVELS or len(levels) != nb + 1:
+        raise ValueError(f"msm_tails: {len(levels)} levels for a batch of 2^{nb} lanes "
+                         f"(nb + 1 levels, at most {TAILS_MAX_LEVELS})")
+    table = []
+    for t, lvl in enumerate(levels):
+        _check(deg, lvl, f"msm_tails level {t}")
+        if lvl.shape[2] != 1 << (nb - t) or lvl.device != m.device:
+            raise ValueError(f"msm_tails: level {t} is {tuple(lvl.shape)} on {lvl.device}, "
+                             f"expected width {1 << (nb - t)} on {m.device}")
+        table += [lvl.data_ptr(), lvl.stride(0), lvl.stride(1)]
+    sched, g, slots = _schedule_on(rcb_schedule.tails_schedule, deg, str(m.device))
+    lanes = m.shape[0]
+    out = torch.empty((3 * deg, 16, lanes), dtype=torch.int32, device=m.device)
+    if lanes:
+        words = (ctypes.c_longlong * len(table))(*table)        # copied into the launch
+        K.launch("msm_tails", deg, ctypes.addressof(words), nb + 1, m.data_ptr(), lanes,
+                 out.data_ptr(), out.stride(0), out.stride(1), sched.data_ptr(), sched.numel(),
+                 g, slots)
     return out

@@ -1,5 +1,5 @@
-"""The complete doubling and add as warp schedules: what the Horner phase of
-kernel msm_finish (csrc/curve.cu) runs.
+"""The complete doubling and add as warp schedules: what kernel msm_finish
+(csrc/curve.cu) runs, and the add alone, what kernel msm_tails runs.
 
 The MSM finish is one dependent chain of 256 doublings and 32 adds a sum.
 The kernel spreads the independent Fq products of ONE point operation over
@@ -233,18 +233,21 @@ def _mont(x: int) -> int:
     return x * MONT_R % Q
 
 
-@lru_cache(maxsize=None)
-def finish_schedule(deg: int) -> dict:
-    """The doubling and the add of one group for the kernel: `g` threads,
-    `slots` slots, `consts` {slot: Montgomery-form integer} (3b', 9b' and
-    acc = infinity), the pinned slots of acc and the addend, and the two
-    step lists [(op, dst, a, b), ...] on slots."""
+def _schedule(deg: int, with_double: bool) -> dict:
+    """The add, and the doubling where asked, of one group for a kernel: `g`
+    threads, `slots` slots, `consts` {slot: Montgomery-form integer} (3b',
+    with the doubling 9b', and acc = infinity), the pinned slots of acc and
+    the addend, and the two step lists [(op, dst, a, b), ...] on slots (the
+    doubling's empty without it)."""
     names = [c for v in ACC + ADDEND for c in comps(deg, v)]
     pinned = {n: i for i, n in enumerate(names)}
     consts = {}
     if deg == 2:
         b3, b9 = B_G2 * 3, B_G2 * 9
-        for n, v in (("B3.0", b3.c0), ("B3.1", b3.c1), ("B9.0", b9.c0), ("B9.1", b9.c1)):
+        values = [("B3.0", b3.c0), ("B3.1", b3.c1)]
+        if with_double:
+            values += [("B9.0", b9.c0), ("B9.1", b9.c1)]
+        for n, v in values:
             pinned[n] = len(pinned)
             consts[pinned[n]] = _mont(v)
     for n in comps(deg, "X") + comps(deg, "Z") + comps(deg, "Y")[1:]:
@@ -252,7 +255,9 @@ def finish_schedule(deg: int) -> dict:
     consts[pinned[comps(deg, "Y")[0]]] = _mont(1)
     g = group_size(deg)
     given = set(pinned)
-    dbl, n1 = assign_slots(cut_into_steps(double_graph(deg).ops, given, g), pinned, len(pinned))
+    dbl, n1 = [], len(pinned)
+    if with_double:
+        dbl, n1 = assign_slots(cut_into_steps(double_graph(deg).ops, given, g), pinned, len(pinned))
     add, n2 = assign_slots(cut_into_steps(add_graph(deg).ops, given, g), pinned, len(pinned))
     slots = max(n1, n2)
     if slots >= IDLE:
@@ -261,6 +266,19 @@ def finish_schedule(deg: int) -> dict:
             "acc": [pinned[c] for v in ACC for c in comps(deg, v)],
             "addend": [pinned[c] for v in ADDEND for c in comps(deg, v)],
             "double": dbl, "add": add}
+
+
+@lru_cache(maxsize=None)
+def finish_schedule(deg: int) -> dict:
+    """The doubling and the add, as kernel msm_finish runs them."""
+    return _schedule(deg, with_double=True)
+
+
+@lru_cache(maxsize=None)
+def tails_schedule(deg: int) -> dict:
+    """The add alone, as kernel msm_tails runs it: acc = infinity from the
+    constants, then one add a set bit of the lane's prefix length."""
+    return _schedule(deg, with_double=False)
 
 
 def pack(sched: dict) -> np.ndarray:
@@ -323,3 +341,37 @@ def interpret_finish(sched: dict, tot: list, head: list, c: int, k: int) -> list
             interpret(sched["add"], file)
         sums.append([file[s] for s in sched["acc"]])
     return sums
+
+
+def _brev64(x: int) -> int:
+    """The 64 bits of x in reverse order (CUDA's __brevll)."""
+    return int(format(x & (2**64 - 1), "064b")[::-1], 2)
+
+
+def tail_walk(m: int, nb: int) -> list:
+    """The (level, column) reads of one tail lane with prefix length m in a
+    flat batch of 2^nb lanes, in the order kernel msm_tails makes them: for
+    each set bit t of m, lowest first (bits above nb are no level), the
+    column rev_{nb-t}(clamp((m >> t) - 1, 0, 2^(nb-t) - 1)) of level t, the
+    reversal done as the kernel does it, __brevll and a shift."""
+    bits, reads = m & ((1 << (nb + 1)) - 1), []
+    while bits:
+        t = (bits & -bits).bit_length() - 1
+        nat = min(max((m >> t) - 1, 0), (1 << (nb - t)) - 1)
+        reads.append((t, _brev64(nat) >> (64 - (nb - t)) if nb > t else nat))
+        bits &= bits - 1
+    return reads
+
+
+def interpret_tails(sched: dict, levels: list, m: list, nb: int) -> list:
+    """Kernel msm_tails on Python integers.  levels[t][col]: the 3 deg
+    Montgomery-form components of column col of upsweep level t; m: the
+    prefix length of each tail lane.  Returns each lane's components."""
+    out = []
+    for mi in m:
+        file = dict(sched["consts"])                          # acc = infinity
+        for t, col in tail_walk(mi, nb):
+            file.update(zip(sched["addend"], levels[t][col]))
+            interpret(sched["add"], file)
+        out.append([file[s] for s in sched["acc"]])
+    return out

@@ -1,5 +1,5 @@
-"""Build, load and launch the hand-written CUDA kernels (K1-K9, and the two
-whole-loop entries mont_pow of K1 and msm_finish of K5).
+"""Build, load and launch the hand-written CUDA kernels (K1-K9, and the three
+whole-loop entries mont_pow of K1, msm_tails of K4 and msm_finish of K5).
 
 The sources in ../csrc are compiled at first use, one nvcc process a
 source and all of them at once, then linked into one shared library with a
@@ -50,9 +50,10 @@ KERNELS = {
     "mont_mul": ("zk_mont_mul", [_P, _I64, _I64, _P, _I64, _I64, _P, _I64, _I64, _I64, _I]),
     "mont_pow": ("zk_mont_pow", [_P, _P, _I64, _P, _I, _I]),
     "ntt_local": ("zk_ntt_local", [_P, _I64, _P, _I64, _I, _I]),
-    "ntt_stage": ("zk_ntt_stage", [_P, _I64, _P, _I64, _I]),
+    "ntt_stage": ("zk_ntt_stage", [_P, _I64, _P, _I64, _I, _I, _I, _I]),
     "point_add": ("zk_point_add", [_I, _P, _I64, _I64, _P, _I64, _I64, _P, _I64, _I64, _I64]),
     "point_double": ("zk_point_double", [_I, _P, _I64, _I64, _P, _I64, _I64, _I64]),
+    "msm_tails": ("zk_msm_tails", [_I, _P, _I, _P, _I64, _P, _I64, _I64, _P, _I, _I, _I]),
     "msm_finish": ("zk_msm_finish", [_I, _P, _I64, _I64, _P, _I64, _I64, _P, _I64, _I64,
                                      _I, _I, _I, _P, _I, _I, _I]),
     # the probes of the measuring path (csrc/probes.cu)
@@ -64,7 +65,8 @@ KERNELS = {
 # the kernels a proof must launch (mont_pow only where a key is serialized:
 # the issuer's trusted_setup; point_double only in scalar_mul / msm_ladder),
 # and the probes only the measuring path runs
-PATH_KERNELS = ("mont_mul", "mont_pow", "ntt_local", "ntt_stage", "point_add", "msm_finish")
+PATH_KERNELS = ("mont_mul", "mont_pow", "ntt_local", "ntt_stage", "point_add", "msm_tails",
+                "msm_finish")
 PROOF_KERNELS = tuple(k for k in PATH_KERNELS if k != "mont_pow")
 PROBE_KERNELS = ("mont_chain", "op_chain", "point_add_tiled", "point_add_chain")
 

@@ -9,12 +9,14 @@ in float64, where it is exact, and rounds once to float32 as the fused
 multiply-add does.  The probes K6-K9 run at their originals' shapes and at
 small chain lengths K (the plain versions cannot run the originals' K of up
 to 120,000 steps); K6 also at the width that fills the card, the shape whose
-rate tools/mont_micro.py reports.  The two whole-loop entries run at the
+rate tools/mont_micro.py reports.  The three whole-loop entries run at the
 credential path's shapes: mont_pow on 2^15 elements with e = p - 2 (the
-batched Fermat inversion of pk_to_bytes), msm_finish on the partials of four
-G1 sums and of one G2 sum at c = 8, and on one small odd shape.  Their plain
-versions are loops of hundreds of plain products or point operations and
-take seconds: `plain_once` tells a caller to run and time them once.
+batched Fermat inversion of pk_to_bytes), msm_tails on the upsweep levels
+of a G1 pass of four sums (2^21 lanes) and of the G2 pass (2^20 lanes) at
+c = 8, msm_finish on the partials of four G1 sums and of one G2 sum at
+c = 8, and on one small odd shape.  Their plain versions, like K3's at
+2^22, are loops of hundreds of plain products or point operations and take
+seconds: `plain_once` tells a caller to run and time them once.
 
 Inputs: random field elements below p; random curve points as host
 multiples of the generator (a small pool, gathered to the lane count),
@@ -154,12 +156,14 @@ def curve_inputs(deg: int, n: int, rng: np.random.Generator, device):
     return p, q
 
 
-def kernel_cases(device, n_field: int = 1 << 15, n_ntt: int = 1 << 15,
+def kernel_cases(device, n_field: int = 1 << 15, n_ntt: int = 1 << 15, n_ntt_big: int = 1 << 22,
                  n_g1: int = 1 << 16, n_g2: int = 1 << 15, seed: int = 0) -> list:
     """The kernels of the proving paths at the given widths (defaults: the
-    main path's; K1 also on an unaligned operand; the doubling also at 4 G1
-    lanes and 1 G2 lane, where a launch is all host), mont_pow and msm_finish at the credential path's
-    shapes (loop_cases), then the four probes (probe_cases)."""
+    main path's; K1 also on an unaligned operand; K3 also at the bench's
+    largest transform, n_ntt_big, in two passes; the doubling also at 4 G1
+    lanes and 1 G2 lane, where a launch is all host), msm_tails at the
+    credential path's shapes (tails_cases), mont_pow and msm_finish at
+    theirs (loop_cases), then the four probes (probe_cases)."""
     rng = np.random.default_rng(seed)
     cases = []
     for spec in (FR, FQ):
@@ -178,21 +182,26 @@ def kernel_cases(device, n_field: int = 1 << 15, n_ntt: int = 1 << 15,
                       lambda s=spec, a=off, b=b: M.mont_mul_plain(s, a, b),
                       3 * n_field, n_field))
 
-    dom = get_domain(n_ntt, str(device))
-    x = random_field(FR, n_ntt, rng, device).t().contiguous()     # (16, n) planes
-    lt = min(gpu_ntt.TILE, n_ntt).bit_length() - 1
     # a run of stages reads and writes the n elements once and reads the
     # twiddles of its stages (2^s at stage s); one product per butterfly
-    for tw, name in ((dom.tw_flat, "forward"), (dom.tw_inv_flat, "inverse")):
-        cases.append(Case("ntt_local", f"K2 ntt_local {name} n={n_ntt}",
-                          lambda tw=tw: gpu_ntt.ntt_local(x.clone(), tw),
-                          lambda tw=tw: gpu_ntt.ntt_plain(x, tw, range(lt)),
-                          2 * n_ntt + (1 << lt) - 1, lt * n_ntt // 2))
-        if dom.k > lt:
-            cases.append(Case("ntt_stage", f"K3 ntt_stage {name} n={n_ntt}",
-                              lambda tw=tw: gpu_ntt.ntt_global(x.clone(), tw),
-                              lambda tw=tw: gpu_ntt.ntt_plain(x, tw, range(lt, dom.k)),
-                              2 * n_ntt + (1 << dom.k) - (1 << lt), (dom.k - lt) * n_ntt // 2))
+    for n, once in ((n_ntt, False), (n_ntt_big, True)):
+        dom = get_domain(n, str(device))
+        lt = min(gpu_ntt.TILE, n).bit_length() - 1
+        x = _fr_planes(n, rng, device)
+        passes = len(gpu_ntt.global_passes(n))
+        for tw, name in ((dom.tw_flat, "forward"), (dom.tw_inv_flat, "inverse")):
+            if not once:
+                cases.append(Case("ntt_local", f"K2 ntt_local {name} n={n}",
+                                  lambda x=x, tw=tw: gpu_ntt.ntt_local(x.clone(), tw),
+                                  lambda x=x, tw=tw, lt=lt: gpu_ntt.ntt_plain(x, tw, range(lt)),
+                                  2 * n + (1 << lt) - 1, lt * n // 2))
+            if dom.k > lt:
+                cases.append(Case("ntt_stage", f"K3 ntt_stage {name} n={n} ({passes} passes)",
+                                  lambda x=x, tw=tw: gpu_ntt.ntt_global(x.clone(), tw),
+                                  lambda x=x, tw=tw, lt=lt, k=dom.k: gpu_ntt.ntt_plain(
+                                      x, tw, range(lt, k)),
+                                  2 * n + (1 << dom.k) - (1 << lt), (dom.k - lt) * n // 2,
+                                  plain_once=once))
 
     for deg, n in ((1, n_g1), (2, n_g2)):
         p, q = curve_inputs(deg, n, rng, device)
@@ -212,7 +221,60 @@ def kernel_cases(device, n_field: int = 1 << 15, n_ntt: int = 1 << 15,
                           lambda d=deg, p=p: G.point_double_planes(d, p),
                           lambda d=deg, p=p: G.point_double_plain(d, p),
                           6 * deg * n, DOUBLE_PRODUCTS[deg] * n))
-    return cases + loop_cases(device, rng, n_field) + probe_cases(device, rng)
+    return (cases + tails_cases(device, rng) + loop_cases(device, rng, n_field)
+            + probe_cases(device, rng))
+
+
+def _fr_planes(n: int, rng: np.random.Generator, device) -> torch.Tensor:
+    """(16, n) planes of random canonical Fr elements, drawn in bulk (16-bit
+    limbs, the top one below r's, 0x3064), 0, 1, r - 1 and r - 2 first."""
+    limbs = rng.integers(0, 1 << 16, size=(n, 16))
+    limbs[:, 15] = rng.integers(0, 0x3064, size=n)
+    edges = ints_to_limbs([0, 1, FR.p - 1, FR.p - 2])[: n]
+    limbs[: len(edges)] = edges
+    return torch.from_numpy(limbs.astype(np.int32)).t().contiguous().to(device)
+
+
+def tail_inputs(deg: int, k: int, c: int, lanes: int, rng: np.random.Generator, device):
+    """(levels, m, nb) as a pass of k sums at window size c over a flat batch
+    of `lanes` lanes makes them: random points (a pool of up to 4,096
+    gathered to the lanes), the upsweep of the device's K4 (or its plain
+    version), and the prefix lengths at the k W (B + 1) bucket tails of
+    digit magnitudes drawn as |d| of uniform c-bit signed digits, sorted by
+    window as the pass sorts them."""
+    W, B = 256 // c, 1 << (c - 1)
+    nb = lanes.bit_length() - 1
+    pool = random_points(deg, min(lanes, 1 << 12), rng, device)
+    idx = torch.from_numpy(rng.integers(0, pool.shape[2], size=lanes)).to(device)
+    levels = [pool.index_select(2, idx)]
+    while levels[-1].shape[-1] > 1:
+        levels.append(G.point_add_halves(deg, levels[-1]))
+    win = np.arange(k * W)[:, None]
+    keys = np.sort((win * (B + 1) + np.abs(rng.integers(-B, B, size=(k * W, lanes // (k * W)))))
+                   .reshape(-1))
+    m = np.searchsorted(keys, (win * (B + 1) + np.arange(B + 1)).reshape(-1), side="right")
+    return levels, torch.from_numpy(m.astype(np.int64)).to(device), nb
+
+
+def tails_cases(device, rng: np.random.Generator,
+                tails=((1, 4, 8, 1 << 21), (2, 1, 8, 1 << 20))) -> list:
+    """msm_tails at (deg, k, c, lanes) passes -- by default a G1 chunk of four
+    sums at c = 8 and the G2 sum, the credential path's -- on levels built
+    once.  Work, from this run's prefix lengths: the nodes read (one a set bit
+    of m, over the nb + 1 levels) and the lanes written, 3 deg field elements
+    each, and m read; popcount(m) adds a lane."""
+    cases = []
+    for deg, k, c, lanes in tails:
+        levels, m, nb = tail_inputs(deg, k, c, lanes, rng, device)
+        mask = (2 << nb) - 1
+        adds = sum(bin(v & mask).count("1") for v in m.tolist())
+        cases.append(Case("msm_tails", f"K4 msm_tails G{deg} k={k} c={c} lanes=2^{nb} "
+                                       f"tails={m.shape[0]} adds={adds}",
+                          lambda d=deg, lv=levels, m=m, nb=nb: P._tails(d, lv, m, nb),
+                          lambda d=deg, lv=levels, m=m, nb=nb: P._tails_plain(d, lv, m, nb),
+                          3 * deg * (adds + m.shape[0]), ADD_PRODUCTS[deg] * adds,
+                          extra_bytes=8 * m.shape[0], plain_once=True))
+    return cases
 
 
 def loop_cases(device, rng: np.random.Generator, n_pow: int = 1 << 15,

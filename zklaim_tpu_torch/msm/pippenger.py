@@ -18,9 +18,15 @@ msm_many runs k sums as one flat batch (window w of sum i is window
 i*W + w) and one finish whose Horner ladder is k lanes wide: the finish's
 ~W*c sequential adds are paid once for all k sums, not k times.
 
-Every point add of the bucket phase goes through
-gpu_curve.point_add_planes / point_add_halves (kernel K4 on CUDA, the plain
-version on CPU tensors).  The finish -- (c - 1) doublings of the window
+The upsweep and the Abel tree add through gpu_curve.point_add_halves
+(kernel K4 on CUDA, the plain version on CPU tensors).  The bucket-tail
+prefixes of step 3 -- for each of the W (B + 1) tail lanes, one add of an
+upsweep node per set bit of its prefix length, lowest level first -- are
+`_tails`: on CUDA planes ONE launch of kernel msm_tails
+(gpu_curve.msm_tails_planes), on CPU planes `_tails_plain`, the loop of the
+JAX package (a plain add and a select a level).  Skipping a level whose bit
+is clear is the select's choice, so both give its planes limb for limb.
+The finish -- (c - 1) doublings of the window
 totals, then a Horner ladder of W*c doublings and W adds -- is `_finish`:
 on CUDA planes ONE launch of kernel msm_finish
 (gpu_curve.msm_finish_planes), on CPU planes `_finish_plain`, the loop over
@@ -44,7 +50,7 @@ import torch
 
 from ..ec import curve as C
 from ..ec.gpu_curve import (
-    msm_finish_planes, point_add_halves, point_add_plain, point_add_planes,
+    msm_finish_planes, msm_tails_planes, point_add_halves, point_add_plain, point_add_planes,
     point_double_plain, scalar_mul,
 )
 from ..ff import montgomery as M
@@ -159,14 +165,7 @@ def _window_partials(deg: int, tables: list, c: int, mark=None):
     # with key <= w*(B+1)+b; block j of level t lives at rev_{nb-t}(j)
     bucket_keys = (win * (B + 1) + torch.arange(B + 1, device=dev)).reshape(-1)
     m = torch.searchsorted(skeys, bucket_keys, right=True)   # prefix lengths
-    acc = C.infinity_planes(deg, m.shape[0], dev)
-    for t, lvl in enumerate(levels):
-        wt = max(1, Mw >> t)
-        nat = ((m >> t) - 1).clamp(0, wt - 1)
-        store = _revbits(nat, nb - t) if nb - t > 0 else nat
-        node = lvl.index_select(2, store)
-        bit = ((m >> t) & 1) == 1
-        acc = torch.where(bit, point_add_planes(deg, acc, node), acc)
+    acc = _tails(deg, levels, m, nb)
     mark("tails")
 
     # Abel summation per window (window-start corrections cancel):
@@ -178,6 +177,34 @@ def _window_partials(deg: int, tables: list, c: int, mark=None):
         heads = point_add_halves(deg, heads)
     mark("abel")
     return tot_w, heads
+
+
+def _tail_nodes(m: torch.Tensor, nb: int, t: int) -> tuple:
+    """(bit t of each prefix length, the column of upsweep level t the lane
+    reads where it is set) for a flat batch of 2^nb lanes."""
+    nat = ((m >> t) - 1).clamp(0, (1 << (nb - t)) - 1)
+    store = _revbits(nat, nb - t) if nb - t > 0 else nat
+    return ((m >> t) & 1) == 1, store
+
+
+def _tails_plain(deg: int, levels: list, m: torch.Tensor, nb: int) -> torch.Tensor:
+    """Plain version of kernel msm_tails, on any device: the prefix sum of
+    each tail lane from the upsweep levels (level t: (3 deg, 16, 2^(nb-t))),
+    one plain add a level whose bit of the lane's prefix length m is set."""
+    acc = C.infinity_planes(deg, m.shape[0], m.device)
+    for t, lvl in enumerate(levels):
+        bit, store = _tail_nodes(m, nb, t)
+        node = lvl.index_select(2, store)
+        acc = torch.where(bit, point_add_plain(deg, acc, node), acc)
+    return acc
+
+
+def _tails(deg: int, levels: list, m: torch.Tensor, nb: int) -> torch.Tensor:
+    """The bucket-tail prefixes: CUDA planes -> one msm_tails launch, CPU
+    planes -> _tails_plain."""
+    if m.is_cuda:
+        return msm_tails_planes(deg, levels, m, nb)
+    return _tails_plain(deg, levels, m, nb)
 
 
 def _dbl_k(deg: int, p: torch.Tensor, k: int) -> torch.Tensor:

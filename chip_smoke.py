@@ -8,7 +8,9 @@
 2. Builds the kernels K1-K9 and the whole-loop entries mont_pow (K1),
    msm_tails (K4) and msm_finish (K5) from zklaim_tpu_torch/csrc with nvcc,
    the sources side by side, and prints what ptxas says of every kernel
-   (registers, stack, spill bytes).
+   (registers, stack, spill bytes), K2's two entries again on their own
+   lines beside K2's cluster launch (cluster size, CTAs, threads, shared
+   memory a CTA) at the credential path's 2^15 and the bench's 2^22.
 3. Probes phase: the four probes of the measuring path
    (zklaim_tpu_torch.tools.mont_micro, pallas_op_micro, grid_micro,
    padd_micro: kernels K6-K9), each at its original's shape and at a width that
@@ -42,8 +44,9 @@
    read just after.  A proof must launch mont_mul, ntt_local, ntt_stage,
    point_add, msm_tails and msm_finish and no point_double; a
    proof_generate on an imported pk exactly 2 msm_finish (one a finish),
-   3 msm_tails (one a pass: two G1 chunks and the G2 sum), 7 ntt_stage (one
-   a transform) and 87 point_add (the upsweeps, Abel trees and chunk sums);
+   3 msm_tails (one a pass: two G1 chunks and the G2 sum), 7 ntt_local and
+   7 ntt_stage (one each a transform: K2 gathers the transform's rows
+   itself) and 87 point_add (the upsweeps, Abel trees and chunk sums);
    the credential path's trusted_setup must launch mont_pow, once a batched
    inversion.
 6. Holds the card against the CPU on the small circuit: the same seed must
@@ -57,8 +60,10 @@
    prefix (G1 and G2), which is where point_double (K5) runs; intt(ntt(x)) =
    x at 2^16; every proof of a batched_prove verifies.  The six kernels of
    the paths and point_double must have launched.
-8. The phase splits of prove and setup (tools.prove_profile,
-   tools.setup_profile) and of one MSM pass (tools.msm_stages), printed.
+8. The phase splits of prove (with h_pipeline split into its steps) and
+   setup (tools.prove_profile, tools.setup_profile), of one MSM pass
+   (tools.msm_stages) and of the transform at 2^15 and 2^22
+   (tools.ntt_profile), printed.
 9. Asserts that no jax module and no module of the JAX package was loaded.
 10. Prints the total seconds, the kernel table as one JSON line, then as the
    last line {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}.
@@ -141,6 +146,18 @@ def _require_not_launched(launches: dict, path: str, kernels) -> None:
         raise AssertionError(f"kernels that {path} must not launch: {ran}")
 
 
+def _ptxas_of(ptxas: str, kernel: str) -> dict:
+    """ptxas' registers, stack and spill lines of every entry whose mangled
+    name holds `kernel`, by entry."""
+    found, entry = {}, None
+    for line in ptxas.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1] if "'" in line else line
+        elif entry and kernel in entry and ("Used" in line or "spill" in line):
+            found.setdefault(entry, []).append(line.split("ptxas info    :")[-1].strip())
+    return found
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import numpy as np
@@ -160,11 +177,12 @@ def main() -> None:
         INT32_MAD_PER_S, bound_ms, kernel_cases, max_abs_err,
     )
     from zklaim_tpu_torch.msm.pippenger import msm_ladder, msm_pow2
+    from zklaim_tpu_torch.ntt import gpu_ntt
     from zklaim_tpu_torch.ntt.radix2 import get_domain
     from zklaim_tpu_torch.parallel.prove import batched_prove
     from zklaim_tpu_torch.tools import (
-        grid_micro, mont_micro, msm_stages, padd_micro, pallas_op_micro, prove_profile,
-        setup_profile,
+        grid_micro, mont_micro, msm_stages, ntt_profile, padd_micro, pallas_op_micro,
+        prove_profile, setup_profile,
     )
     from zklaim_tpu_torch.utils.profiling import device_ms
 
@@ -188,6 +206,14 @@ def main() -> None:
     for line in record["ptxas"].splitlines():
         if "Compiling entry" in line or "Used" in line or "spill" in line:
             print("  ptxas:", line.split("ptxas info    :")[-1].strip())
+    record["k2_ptxas"] = _ptxas_of(record["ptxas"], "ntt_local_kernel")
+    for entry, lines in record["k2_ptxas"].items():
+        print(f"[{card}] K2 {entry}: {'; '.join(lines)}")
+    record["k2_launch"] = {n: gpu_ntt.local_launch(n) for n in (1 << 15, 1 << 22)}
+    for n, cfg in record["k2_launch"].items():
+        print(f"[{card}] K2 launch at n = 2^{n.bit_length() - 1}: clusters of {cfg['cluster']} CTAs, "
+              f"{cfg['ctas']} CTAs of {cfg['threads']} threads, {cfg['shared_bytes']} B of "
+              f"shared memory a CTA")
     sys.stdout.flush()
 
     # -- 3a. probes phase: K6-K9 through their tools ------------------------
@@ -316,7 +342,7 @@ def main() -> None:
         raise AssertionError(f"trusted_setup: the inversions' squarings are mont_pow's now, yet "
                              f"mont_mul launched {cred['trusted_setup_launches']['mont_mul']} times")
     # one msm_finish a finish, one msm_tails a pass, one ntt_stage a transform
-    per_proof = {"msm_finish": 2, "msm_tails": 3, "ntt_stage": 7, "point_add": 87}
+    per_proof = {"msm_finish": 2, "msm_tails": 3, "ntt_local": 7, "ntt_stage": 7, "point_add": 87}
     got = {k: cred["reprove_launches"][k] for k in per_proof}
     if got != per_proof:
         raise AssertionError(f"proof_generate on an imported pk launched {got}, expected {per_proof}")
@@ -417,6 +443,8 @@ def main() -> None:
         stage_rows = msm_stages.measure(dev, log2n, deg=deg)
         record["msm_stages"] += stage_rows
         print("\n".join(msm_stages.format_rows(stage_rows)))
+    record["ntt_profile"] = ntt_profile.measure(dev)
+    print("\n".join(ntt_profile.format_rows(record["ntt_profile"])))
     sys.stdout.flush()
 
     # -- 9. nothing of jax or the JAX package was loaded -----------------------

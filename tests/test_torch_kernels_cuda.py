@@ -1,5 +1,6 @@
 """Kernels K1-K9, mont_pow, msm_tails and msm_finish against their plain
-versions on the card (needs CUDA).
+versions on the card (needs CUDA), K2 through both its entries, and every
+kernel on its operands' card (needs two).
 
 Run on a machine with an NVIDIA GPU (no jax needed there, hence
 --noconftest):
@@ -280,6 +281,86 @@ def test_main_path_launches_every_kernel(cuda):
     assert all(K.LAUNCHES[k] > 0 for k in K.PROOF_KERNELS if k != "ntt_stage"), K.LAUNCHES
     assert K.LAUNCHES["mont_pow"] == 0 and K.LAUNCHES["point_double"] == 0, K.LAUNCHES
     assert all(K.LAUNCHES[k] == 0 for k in K.PROBE_KERNELS), K.LAUNCHES
+
+
+def test_ntt_rows_entry_at_every_size_and_split(cuda):
+    """K2's gather entry: NTTDomain.ntt and intt on the card equal the CPU's
+    at n = 2 .. 2^12 and 2^15 (one K2 launch a transform); the entry at
+    other tiles and clusters -- clusters of 2 to 8 CTAs, and CTAs of 1,024
+    elements, whose shared memory needs the opt-in above 48 KiB --
+    equals the walk of the kernel's split; a transposed (n, 16) view
+    transforms as its rows do; operands on the CPU, or rows not 16-byte
+    aligned, raise."""
+    import numpy as np
+
+    from zklaim_tpu_torch.kernels.cases import random_field
+    from zklaim_tpu_torch.ff.montgomery import FR
+    from zklaim_tpu_torch.ntt.radix2 import NTTDomain
+
+    for log_n in list(range(1, 13)) + [15]:
+        n = 1 << log_n
+        x = random_field(FR, n, np.random.default_rng(log_n), cuda)
+        gpu, cpu = NTTDomain(n, cuda), NTTDomain(n, "cpu")
+        before = K.LAUNCHES["ntt_local"]
+        got = gpu.ntt(x)
+        assert K.LAUNCHES["ntt_local"] == before + 1, log_n
+        assert max_abs_err(got.cpu(), cpu.ntt(x.cpu())) == 0, log_n
+        assert max_abs_err(gpu.intt(x).cpu(), cpu.intt(x.cpu())) == 0, log_n
+    n = 1 << 12
+    dom = NTTDomain(n, cuda)
+    x = random_field(FR, n, np.random.default_rng(3), cuda)
+    view = x.t().contiguous().t()
+    assert not view.is_contiguous()
+    assert max_abs_err(dom.ntt(view), dom.ntt(x)) == 0
+    assert max_abs_err(dom.coset_intt(view).cpu(), NTTDomain(n, "cpu").coset_intt(x.cpu())) == 0
+    for tile, cluster in ((16, 4), (64, 8), (32, 2), (2048, 2), (1024, 4)):
+        for tw in (dom.tw_flat, dom.tw_inv_flat):
+            got = gpu_ntt.ntt_local_rows(x, tw, tile, cluster)
+            want = gpu_ntt.ntt_local_cluster_plain(x, tw, tile, cluster, rows=True)
+            assert max_abs_err(got, want) == 0, (tile, cluster)
+            assert max_abs_err(gpu_ntt.ntt_local(x.t().contiguous()[:, gpu_ntt.bitrev_rows(n, cuda)]
+                                                 .contiguous(), tw, tile, cluster), want) == 0
+    buf = torch.zeros(n * 16 + 4, dtype=torch.int32, device=cuda)
+    off = buf[1 : 1 + n * 16].view(n, 16)
+    for bad in (lambda: gpu_ntt.ntt_local_rows(off, dom.tw_flat),          # not 16-byte aligned
+                lambda: gpu_ntt.ntt_local_rows(x, dom.tw_flat.cpu()),      # twiddles on the CPU
+                lambda: gpu_ntt.ntt_local(x.t().contiguous(), dom.tw_flat.cpu()),
+                lambda: gpu_ntt.ntt_local_rows(x.long(), dom.tw_flat)):
+        with pytest.raises(ValueError):
+            bad()
+
+
+def test_kernels_launch_on_their_operands_card(cuda):
+    """With card 0 current, operands on card 1: every kernel of a proof's
+    transforms and sums lands on card 1 (results there, equal to the plain
+    versions), card 0 stays current, and operands on two cards raise."""
+    import numpy as np
+
+    from zklaim_tpu_torch.ec.gpu_curve import point_add_plain, point_add_planes
+    from zklaim_tpu_torch.ff import montgomery as M
+    from zklaim_tpu_torch.kernels.cases import curve_inputs, random_field
+    from zklaim_tpu_torch.ntt.radix2 import NTTDomain
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two GPUs")
+    one = torch.device("cuda:1")
+    rng = np.random.default_rng(4)
+    with torch.cuda.device(0):
+        a, b = (random_field(M.FR, 4096, rng, one) for _ in range(2))
+        prod = M.mont_mul(M.FR, a, b)
+        assert prod.device == one and max_abs_err(prod, M.mont_mul_plain(M.FR, a, b)) == 0
+        dom = NTTDomain(1 << 12, one)
+        y = dom.ntt(a)
+        assert y.device == one and max_abs_err(y.cpu(), NTTDomain(1 << 12, "cpu").ntt(a.cpu())) == 0
+        p, q = curve_inputs(1, 1000, rng, one)
+        s = point_add_planes(1, p, q)
+        assert s.device == one and max_abs_err(s, point_add_plain(1, p, q)) == 0
+        torch.cuda.synchronize(one)
+        assert torch.cuda.current_device() == 0
+        with pytest.raises(ValueError):
+            M.mont_mul(M.FR, a, b.to("cuda:0"))
+        with pytest.raises(ValueError):
+            point_add_planes(1, p, q.to("cuda:0"))
 
 
 def test_probe_wrappers_reject_bad_operands(cuda):

@@ -29,6 +29,12 @@ def _mont(vals):
     return torch.from_numpy(TM.encode_ints(TM.FR, vals).astype(np.int32))
 
 
+def _ntt_stages(planes, tw, tile=gpu_ntt.TILE):
+    """Every butterfly stage on (16, n) bit-reversed planes: K2's step and
+    K3's, as a transform runs them after its entry."""
+    return gpu_ntt.ntt_global(gpu_ntt.ntt_local(planes, tw, tile), tw, tile)
+
+
 @pytest.fixture(scope="module")
 def dom64():
     return JR.NTTDomain(64), NTTDomain(64, "cpu")
@@ -67,8 +73,8 @@ def test_local_global_split_matches_dft(inverse):
     vals = [random.Random(10).randrange(R) for _ in range(n)]
     planes = _mont(vals).index_select(0, dom.bitrev).t().contiguous()
     tw = dom.tw_inv_flat if inverse else dom.tw_flat
-    split = gpu_ntt.ntt_stages(planes, tw, tile=32)
-    whole = gpu_ntt.ntt_stages(planes, tw, tile=n)
+    split = _ntt_stages(planes, tw, tile=32)
+    whole = _ntt_stages(planes, tw, tile=n)
     assert torch.equal(split, whole)
     root = dom.omega_inv if inverse else dom.omega
     want = [sum(v * pow(root, i * j, R) for j, v in enumerate(vals)) % R for i in range(n)]
@@ -160,3 +166,115 @@ def test_global_passes_at_the_paths_sizes():
         for s0, g, c in passes:
             assert (c << g) * 32 <= 64 * 1024 and g <= gpu_ntt.MAX_PASS_STAGES
     assert gpu_ntt.global_passes(1 << 10) == [] and gpu_ntt.global_passes(512) == []
+
+
+# ---------------------------------------------------------------------------
+# K2's clusters: a tile on a cluster of CTAs, the rows gathered in the load
+# ---------------------------------------------------------------------------
+
+# (tile, CTAs a cluster): small tiles, so that at these sizes every stage
+# that pairs two CTAs runs, on clusters of 1 to 8 CTAs; (1024, 4) is the
+# kernel's own split
+CLUSTER_SPLITS = [(16, 4), (32, 2), (8, 8), (64, 8), (4, 1), (2, 2), (1024, 4)]
+
+
+@pytest.mark.parametrize("log_n", range(6, 13))
+def test_cluster_plain_matches_ntt_plain(log_n):
+    """ntt_local_cluster_plain -- the kernel's CTA ranks, the stages that
+    pair CTAs with their partner and twiddle indices, the staged twiddles,
+    and for the rows entry the __brev row index -- equals ntt_plain over the
+    stages below the tile, forward and inverse, for every split; ntt_local
+    and ntt_local_rows on CPU tensors are the plain versions."""
+    n = 1 << log_n
+    dom = NTTDomain(n, "cpu")
+    x = _mont([random.Random(20 + log_n).randrange(R) for _ in range(n)])
+    planes = x.index_select(0, dom.bitrev).t().contiguous()
+    for tile, cluster in CLUSTER_SPLITS:
+        lt, lc, le = gpu_ntt.local_split(n, tile, cluster)
+        assert (lt, lc + le) == (min(tile, n).bit_length() - 1, lt)
+        for tw in (dom.tw_flat, dom.tw_inv_flat):
+            want = gpu_ntt.ntt_plain(planes, tw, range(lt))
+            assert torch.equal(gpu_ntt.ntt_local_cluster_plain(planes, tw, tile, cluster), want)
+            assert torch.equal(gpu_ntt.ntt_local_cluster_plain(x, tw, tile, cluster, rows=True),
+                               want), (tile, cluster)
+            assert torch.equal(gpu_ntt.ntt_local_rows(x, tw, tile, cluster), want)
+            assert torch.equal(gpu_ntt.ntt_local(planes, tw, tile, cluster), want)
+
+
+@pytest.mark.parametrize("log_n", [6, 9, 12])
+def test_cluster_plain_transform_matches_jax(dom64, log_n):
+    """The rows entry's walk (bit reversal in the load, clusters of 4 CTAs
+    on tiles of 16), then K3's passes: forward equals the JAX package's
+    NTTDomain.ntt, and with the n^{-1} scaling the inverse equals its intt."""
+    n = 1 << log_n
+    jd = dom64[0] if n == 64 else JR.NTTDomain(n)
+    dom = NTTDomain(n, "cpu")
+    x = _mont([random.Random(30 + log_n).randrange(R) for _ in range(n)])
+    xj = jnp.asarray(x.numpy().astype(np.uint32))
+    for tw, ref in ((dom.tw_flat, jd.ntt(xj)), (dom.tw_inv_flat, jd.intt(xj))):
+        local = gpu_ntt.ntt_local_cluster_plain(x, tw, 16, 4, rows=True)
+        got = gpu_ntt.ntt_global_columns_plain(local, tw, 16).t()
+        if tw is dom.tw_inv_flat:
+            got = TM.mont_mul(TM.FR, got, dom.n_inv_mont)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(ref).astype(np.int32))
+
+
+@pytest.mark.parametrize("log_n", [1, 2, 6, 9, 12])
+def test_transform_entry_on_cpu_gives_the_planes_it_gave(log_n):
+    """The rows entry on the CPU: bitrev_rows reverses the k bits of each
+    index, ntt_local_rows gives the planes that the index_select, the
+    transpose and the local stages gave, and NTTDomain.ntt / intt give what
+    those planes through every stage gave."""
+    n = 1 << log_n
+    dom = NTTDomain(n, "cpu")
+    x = _mont([random.Random(40 + log_n).randrange(R) for _ in range(n)])
+    assert gpu_ntt.bitrev_rows(n, "cpu").tolist() == [
+        int(format(j, f"0{log_n}b")[::-1], 2) for j in range(n)]
+    planes = x.index_select(0, dom.bitrev).t().contiguous()
+    lt = min(gpu_ntt.TILE, n).bit_length() - 1
+    for tw in (dom.tw_flat, dom.tw_inv_flat):
+        assert torch.equal(gpu_ntt.ntt_local_rows(x, tw), gpu_ntt.ntt_plain(planes, tw, range(lt)))
+        assert torch.equal(gpu_ntt.ntt_local_rows(x, tw, bitrev=dom.bitrev),
+                           gpu_ntt.ntt_plain(planes, tw, range(lt)))
+    assert torch.equal(dom.ntt(x), _ntt_stages(planes, dom.tw_flat).t())
+    assert torch.equal(dom.intt(x), TM.mont_mul(TM.FR, _ntt_stages(
+        planes, dom.tw_inv_flat).t(), dom.n_inv_mont))
+
+
+@pytest.mark.parametrize("log_n", [2, 11])
+def test_transform_takes_a_strided_view(log_n):
+    """A transform of a non-contiguous (n, 16) view (the transpose of
+    planes) gives what it gives of the same values laid out in rows."""
+    n = 1 << log_n
+    dom = NTTDomain(n, "cpu")
+    x = _mont([random.Random(60 + log_n).randrange(R) for _ in range(n)])
+    view = x.t().contiguous().t()
+    assert not view.is_contiguous()
+    assert torch.equal(dom.ntt(view), dom.ntt(x))
+    assert torch.equal(dom.coset_intt(view), dom.coset_intt(x))
+
+
+def test_local_launch_at_the_paths_sizes():
+    """Clusters of 4 CTAs of 256 elements and 128 threads: 128 CTAs at the
+    credential path's 2^15 (one CTA a tile gave 32), 16,384 at the bench's
+    2^22; a small transform takes a cluster of its own size; the rows entry
+    refuses what is no (2^k, 16) rows tensor and splits refuse a cluster
+    that is no power of two up to 8, or CTAs above 1,024 elements."""
+    at = gpu_ntt.local_launch
+    assert at(1 << 15) == {"cluster": 4, "ctas": 128, "threads": 128,
+                           "shared_bytes": (256 + 255 + 2 * 128) * 32}
+    assert at(1 << 15)["ctas"] >= 128 and at(1 << 22)["ctas"] == 16384
+    assert at(1 << 15)["shared_bytes"] <= 48 * 1024
+    assert at(4) == {"cluster": 2, "ctas": 2, "threads": 1, "shared_bytes": (2 + 1 + 1) * 32}
+    assert at(2)["ctas"] == 1 and at(2)["threads"] == 1
+    assert gpu_ntt.local_split(1 << 20) == (10, 2, 8)
+    for bad in (3, 16, 0):
+        with pytest.raises(ValueError):
+            gpu_ntt.local_split(1 << 12, cluster=bad)
+    assert gpu_ntt.local_split(1 << 12, 2048, 2) == (11, 1, 10)
+    with pytest.raises(ValueError):                      # a CTA of 2,048 elements
+        gpu_ntt.local_split(1 << 12, 2048, 1)
+    tw = NTTDomain(8, "cpu").tw_flat
+    for rows in (torch.zeros((8, 15), dtype=torch.int32), torch.zeros((6, 16), dtype=torch.int32)):
+        with pytest.raises(ValueError):
+            gpu_ntt.ntt_local_rows(rows, tw)

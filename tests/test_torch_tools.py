@@ -79,3 +79,42 @@ def test_tool_rows_on_the_cpu(tool, kwargs, count):
     rows = _on_cpu(tool.measure("cpu", **kwargs))
     assert len(rows) == count and all(r["ms"] >= 0 for r in rows)
     assert all(tool.format_row(r).startswith("[cpu]") for r in rows)
+
+
+def test_h_split_is_h_plain_step_by_step():
+    """The split of h_pipeline that prove_profile prints, on the small
+    circuit: groth16.api.h_plain with a mark hook calls it once a step, in
+    order, and gives the same H coefficients as without; an unsatisfied
+    witness raises before the transforms."""
+    from zklaim_tpu_torch.entry import tiny_circuit
+    from zklaim_tpu_torch.ff.limbs import to_tensor
+    from zklaim_tpu_torch.groth16 import api as A
+    from zklaim_tpu_torch.groth16.qap import QAP
+
+    cs, witness = tiny_circuit()
+    qap = QAP.for_cs(cs, "cpu")
+    w_plain = to_tensor(A.witness_plain_limbs(witness), "cpu")
+    marks = []
+    h = A.h_plain(qap, w_plain, witness, mark=marks.append)
+    assert torch.equal(h, A.h_plain(qap, w_plain, witness))
+    assert marks == [
+        "witness map (to_mont + constraint_evals)", "satisfaction check",
+        "3 intt + 3 coset_ntt (6 transforms, K1 scalings)", "pointwise (a b - c) / Z",
+        "coset_intt (7th transform, K1 scalings)", "from_mont"]
+    bad = w_plain.clone()
+    bad[-1, 0] ^= 1
+    marks.clear()
+    with pytest.raises(ValueError, match="unsatisfied"):
+        A.h_plain(qap, bad, witness, mark=marks.append)
+    assert marks == ["witness map (to_mont + constraint_evals)"]
+
+
+def test_ntt_profile_rows_on_the_cpu():
+    from zklaim_tpu_torch.tools import ntt_profile
+
+    rows = _on_cpu(ntt_profile.measure("cpu", log2ns=(3, 5), calls=2, clusters=(2,)))
+    assert [(r["log2n"], r["step"]) for r in rows] == [
+        (k, step) for k in (3, 5)
+        for step in ntt_profile.STEPS + ("K2 ntt_local (planes, cluster of 2)",)]
+    assert all(r["call_ms"] >= 0 and r["device_ms"] is None for r in rows)
+    assert all("device not measured" in line for line in ntt_profile.format_rows(rows))

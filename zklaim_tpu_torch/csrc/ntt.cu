@@ -1,6 +1,5 @@
 // K2 (ntt_local) and K3 (ntt_stage): radix-2 DIT butterfly stages over Fr
-// on a (16, n) limb plane, in place.  The input is already in bit-reversed
-// order (the caller's index_select).
+// on (16, n) limb planes.
 //
 // Replaces: zklaim_tpu/ntt/pallas_ntt.py:_local_multi_kernel (K2, driven
 // by _stages_local) and :_global_stage_kernel (K3, driven by
@@ -14,25 +13,48 @@
 // Butterfly (pair j, j + half, r = j mod half): t = tw[r] * x[j + half];
 // x[j] = x[j] + t; x[j + half] = x[j] - t.
 //
-// What bounds it on the card: at n = 2^15 the whole transform is 1 MiB
-// and lives in L2, so the bound is the Montgomery multiplies (n/2 per
-// stage); at the credential path's sizes the launches and each stage's
-// dependent products come first.  Design: K2 keeps a tile of T elements
-// in shared memory (8 x 32-bit limbs, limb-major so a warp's accesses fall
-// in distinct banks) and runs every stage with half < T between
-// __syncthreads().  K3 runs a PASS of up to 6 consecutive stages with
-// half >= T in one launch: those stages never mix columns (j mod T), so a
-// CTA loads C adjacent columns x the 2^G rows the pass pairs, runs the G
-// stages in shared memory and writes back once (each pair computed once;
-// the Pallas kernel ran one stage a launch and every pair twice).  Which
-// passes and C: ntt/gpu_ntt.py:global_passes -- one pass (one launch) at
-// n = 2^15, two at 2^20 and 2^22, at most 64 KiB of shared memory a CTA.
-// At 2^15 a pass is 256 CTAs of 64 threads, one butterfly a thread a stage:
-// five dependent products and their twiddle loads, latency-bound.
-// ptxas (CUDA 12.8, sm_90a): K2 40 registers, K3 46, no spills.
+// What bounds it on the card: the Montgomery products (n/2 per stage); at
+// n = 2^15 the whole transform is 1 MiB and lives in L2, and each stage is
+// one product's latency on every thread, so the number of warps in flight
+// and the stages' dependent chain come first.
+//
+// K2 runs every stage with half < T (the tile, 2^log_tile elements) on a
+// thread-block CLUSTER of 2^lc CTAs a tile, each holding E = T / 2^lc
+// elements in its own shared memory (8 x 32-bit limbs, limb-major) with
+// E / 2 threads, one butterfly a thread a stage: at T = 1024 and 4 CTAs a
+// cluster, 128 CTAs of 128 threads at n = 2^15, where one CTA a tile gave
+// 32 CTAs for the 132 SMs.  The stages with half < E pair elements of one
+// CTA and run between __syncthreads(); the lc stages with E <= half < T pair
+// CTAs ranks r and r ^ bit: each thread takes one such pair, reads and
+// writes both elements, its partner's through distributed shared memory
+// (map_shared_rank), and a cluster.sync() closes every such stage (and
+// opens the first, where every CTA of the cluster has started).  Every
+// twiddle a CTA needs is staged in its shared memory with the elements, in
+// one round of loads before the first stage, so no stage waits on device
+// memory.  GATHER = true is the transform's entry: element j of the
+// transform is row brev_k(j) of the (n, 16) AoS input (its bit reversal,
+// __brev(j) >> (32 - k)), read as four 16-byte vectors; the result goes to
+// a new (16, n) planes tensor for K3 -- the bit-reversal index_select and the
+// transpose to planes happen in the kernel's load.  GATHER = false reads and
+// writes (16, n) planes in place (already in bit-reversed order).
+//
+// K3 runs a PASS of up to 6 consecutive stages with half >= T in one launch:
+// those stages never mix columns (j mod T), so a CTA loads C adjacent
+// columns x the 2^G rows the pass pairs, runs the G stages in shared memory
+// and writes back once (each pair computed once; the Pallas kernel ran one
+// stage a launch and every pair twice).  Which passes and C:
+// ntt/gpu_ntt.py:global_passes -- one pass (one launch) at n = 2^15, two at
+// 2^20 and 2^22, at most 64 KiB of shared memory a CTA.  At 2^15 a pass is
+// 256 CTAs of 64 threads, one butterfly a thread a stage: five dependent
+// products and their twiddle loads, latency-bound.
+// ptxas (CUDA 12.8, sm_90a): K2 68 registers (both entries), K3 46; no
+// spills, no stack frame.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "field.cuh"
+
+namespace cg = cooperative_groups;
 
 __device__ __forceinline__ Fe sm_load(const uint32_t* sm, int tile, int j) {
   Fe r;
@@ -46,33 +68,61 @@ __device__ __forceinline__ void sm_store(uint32_t* sm, int tile, int j, const Fe
   for (int k = 0; k < 8; k++) sm[k * tile + j] = a.v[k];
 }
 
-__global__ void ntt_local_kernel(int32_t* __restrict__ x, int64_t n,
-                                 const int32_t* __restrict__ tw, int64_t tw_ls,
-                                 int log_tile, int stages) {
-  extern __shared__ uint32_t sm[];                 // [8][tile]
-  const int tile = 1 << log_tile;
-  const int64_t base = (int64_t)blockIdx.x * tile;
-  for (int j = threadIdx.x; j < tile; j += blockDim.x) {
-    sm_store(sm, tile, j, fe_load(x, n, 1, base + j));
+__device__ __forceinline__ void butterfly(uint32_t* lo, uint32_t* hi, int e, int j,
+                                          const Fe& w) {
+  const Fe a = sm_load(lo, e, j);
+  const Fe tb = fe_mul<ZK_FR>(w, sm_load(hi, e, j));
+  sm_store(lo, e, j, fe_add<ZK_FR>(a, tb));
+  sm_store(hi, e, j, fe_sub<ZK_FR>(a, tb));
+}
+
+// Block b of the grid is rank b mod 2^lc of the cluster of tile b >> lc, and
+// holds elements j = b E + l, l < E.  Shared memory: [8][E] elements, then
+// [8][TW] twiddles, TW = (E - 1) + lc E / 2: the local stages' E - 1 at their
+// own offsets (stage s at 2^s - 1), then for cross stage c (half = E 2^c)
+// thread t's twiddle at E - 1 + c E / 2 + t.  Cross stage c: thread t of
+// rank r takes local element l = ((r >> c) & 1) E / 2 + t of the CTAs
+// lo = r & ~2^c and hi = r | 2^c (the pair's low element is lo E + l of the
+// tile: twiddle ((lo mod 2^c) E) + l).
+template <bool GATHER>
+__global__ void ntt_local_kernel(const int32_t* src, int32_t* dst, int64_t n, int log_n,
+                                 const int32_t* __restrict__ tw, int64_t tw_ls, int le, int lc) {
+  extern __shared__ uint32_t sm[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int E = 1 << le, H = E >> 1, TW = (E - 1) + lc * H;
+  uint32_t* smt = sm + 8 * E;
+  const unsigned rank = cluster.block_rank();
+  const int64_t base = (int64_t)blockIdx.x << le;
+  const int t = threadIdx.x;
+  for (int l = t; l < E; l += H) {
+    const int64_t j = base + l;
+    const Fe v = GATHER ? fe_load_vec(src + ((int64_t)(__brev((unsigned)j) >> (32 - log_n)) << 4))
+                        : fe_load(src, n, 1, j);
+    sm_store(sm, E, l, v);
+  }
+  for (int i = t; i < E - 1; i += H) sm_store(smt, TW, i, fe_load(tw, tw_ls, 1, i));
+  for (int c = 0; c < lc; c++) {
+    const unsigned lo = rank & ~(1u << c);
+    const int l = (((rank >> c) & 1) << (le - 1)) | t;
+    const int64_t r = ((int64_t)(lo & ((1u << c) - 1)) << le) + l;
+    sm_store(smt, TW, E - 1 + c * H + t, fe_load(tw, tw_ls, 1, ((int64_t)1 << (le + c)) - 1 + r));
   }
   __syncthreads();
-  for (int s = 0; s < stages; s++) {
-    const int half = 1 << s;
-    for (int t = threadIdx.x; t < tile / 2; t += blockDim.x) {
-      const int r = t & (half - 1);
-      const int j = ((t >> s) << (s + 1)) + r;
-      Fe a = sm_load(sm, tile, j);
-      Fe b = sm_load(sm, tile, j + half);
-      Fe w = fe_load(tw, tw_ls, 1, half - 1 + r);
-      Fe tb = fe_mul<ZK_FR>(w, b);
-      sm_store(sm, tile, j, fe_add<ZK_FR>(a, tb));
-      sm_store(sm, tile, j + half, fe_sub<ZK_FR>(a, tb));
-    }
+  for (int s = 0; s < le; s++) {
+    const int half = 1 << s, r = t & (half - 1);
+    const int j = ((t >> s) << (s + 1)) + r;
+    butterfly(sm + j, sm + j + half, E, 0, sm_load(smt, TW, half - 1 + r));
     __syncthreads();
   }
-  for (int j = threadIdx.x; j < tile; j += blockDim.x) {
-    fe_store(x, n, 1, base + j, sm_load(sm, tile, j));
+  for (int c = 0; c < lc; c++) {
+    cluster.sync();                 // the partner's last stage is written (and it has started)
+    const unsigned bit = 1u << c;
+    const int l = (((rank >> c) & 1) << (le - 1)) | t;
+    butterfly(cluster.map_shared_rank(sm, rank & ~bit), cluster.map_shared_rank(sm, rank | bit),
+              E, l, sm_load(smt, TW, E - 1 + c * H + t));
   }
+  cluster.sync();                   // the partners' writes here are done, and none reads here
+  for (int l = t; l < E; l += H) fe_store(dst, n, 1, base + l, sm_load(sm, E, l));
 }
 
 // One pass: the `stages` consecutive stages s0 .. s0 + stages - 1, all with
@@ -124,16 +174,44 @@ __global__ void ntt_stage_kernel(int32_t* __restrict__ x, int64_t n,
   }
 }
 
-// stages 0 .. stages-1 on every tile of 2^log_tile elements
-extern "C" int zk_ntt_local(void* x, long long n, const void* tw, long long tw_ls,
-                            int log_tile, int stages, void* stream) {
-  const int tile = 1 << log_tile;
-  if (n % tile != 0 || stages > log_tile) return (int)cudaErrorInvalidValue;
-  const int threads = tile / 2 < 512 ? (tile / 2 > 0 ? tile / 2 : 1) : 512;
-  const size_t smem = (size_t)tile * 8 * sizeof(uint32_t);
-  const unsigned blocks = (unsigned)(n / tile);
-  ntt_local_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
-      (int32_t*)x, n, (const int32_t*)tw, tw_ls, log_tile, stages);
+// every stage with half < 2^log_tile on each tile of 2^log_tile elements,
+// a tile on a cluster of 2^log_cluster CTAs; gather: src is the (n, 16) AoS
+// input (16-byte aligned) and dst new (16, n) planes, else src = dst planes
+extern "C" int zk_ntt_local(const void* src, void* dst, long long n, const void* tw,
+                            long long tw_ls, int log_tile, int log_cluster, int gather,
+                            void* stream) {
+  if (n < 2 || (n & (n - 1)) || log_tile < 1 || ((long long)1 << log_tile) > n ||
+      log_cluster < 0 || log_cluster > 3 || log_cluster >= log_tile ||
+      log_tile - log_cluster > 10) {
+    return (int)cudaErrorInvalidValue;
+  }
+  int log_n = 0;
+  while (((long long)1 << log_n) < n) log_n++;
+  const int le = log_tile - log_cluster, E = 1 << le;
+  const size_t smem = (size_t)(E + (E - 1) + log_cluster * (E / 2)) * 8 * sizeof(uint32_t);
+  void (*kernel)(const int32_t*, int32_t*, int64_t, int, const int32_t*, int64_t, int, int) =
+      gather ? ntt_local_kernel<true> : ntt_local_kernel<false>;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1u << log_cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(n >> le));
+  cfg.blockDim = dim3((unsigned)(E / 2));
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, (const int32_t*)src, (int32_t*)dst,
+                                       (int64_t)n, log_n, (const int32_t*)tw, (int64_t)tw_ls,
+                                       le, log_cluster);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

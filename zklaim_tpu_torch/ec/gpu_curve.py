@@ -62,15 +62,16 @@ def point_add_planes(deg: int, p: torch.Tensor, q: torch.Tensor) -> torch.Tensor
         return point_add_plain(deg, p, q)
     _check(deg, p, "point_add p")
     _check(deg, q, "point_add q")
-    if p.shape != q.shape or p.device != q.device:
+    dev = K.launch_device("point_add", p, q)
+    if p.shape != q.shape:
         raise ValueError(f"point_add: operand mismatch {tuple(p.shape)} vs {tuple(q.shape)}")
     n = p.shape[2]
-    out = torch.empty((3 * deg, 16, n), dtype=torch.int32, device=p.device)
+    out = torch.empty((3 * deg, 16, n), dtype=torch.int32, device=dev)
     if n:
         K.launch("point_add", deg,
                  p.data_ptr(), p.stride(0), p.stride(1),
                  q.data_ptr(), q.stride(0), q.stride(1),
-                 out.data_ptr(), out.stride(0), out.stride(1), n)
+                 out.data_ptr(), out.stride(0), out.stride(1), n, device=dev)
     return out
 
 
@@ -95,12 +96,13 @@ def point_double_planes(deg: int, p: torch.Tensor) -> torch.Tensor:
     if not p.is_cuda:
         return point_double_plain(deg, p)
     _check(deg, p, "point_double p")
+    dev = K.launch_device("point_double", p)
     n = p.shape[2]
-    out = torch.empty((3 * deg, 16, n), dtype=torch.int32, device=p.device)
+    out = torch.empty((3 * deg, 16, n), dtype=torch.int32, device=dev)
     if n:
         K.launch("point_double", deg,
                  p.data_ptr(), p.stride(0), p.stride(1),
-                 out.data_ptr(), out.stride(0), out.stride(1), n)
+                 out.data_ptr(), out.stride(0), out.stride(1), n, device=dev)
     return out
 
 
@@ -144,25 +146,26 @@ def msm_finish_planes(deg: int, tot: torch.Tensor, head: torch.Tensor, c: int,
     limb for limb what pippenger._finish_plain gives.  CUDA tensors only."""
     _check(deg, tot, "msm_finish tot")
     _check(deg, head, "msm_finish head")
+    dev = K.launch_device("msm_finish", tot, head)
     if c not in (2, 4, 8, 16):
         raise ValueError(f"msm_finish: window size {c} (2, 4, 8 or 16)")
     W = 256 // c
-    if k < 1 or tot.shape != head.shape or tot.shape[2] != k * W or tot.device != head.device:
+    if k < 1 or tot.shape != head.shape or tot.shape[2] != k * W:
         raise ValueError(f"msm_finish: {k} sums of {W} windows with partials "
                          f"{tuple(tot.shape)} and {tuple(head.shape)}")
-    sched, g, slots = _schedule_on(rcb_schedule.finish_schedule, deg, str(tot.device))
+    sched, g, slots = _schedule_on(rcb_schedule.finish_schedule, deg, str(dev))
     per_warp = 32 // g
     warps = min(FINISH_MAX_WARPS, max(k, -(-k * W // per_warp)))        # as the launcher does
     need = 4 * (sched.numel() + 3 * deg * 8 * k * W + warps * per_warp * slots * 8)
     if need > FINISH_SHARED_BYTES:
         raise ValueError(f"msm_finish: {k} sums of {W} windows need {need} bytes of shared "
                          f"memory, more than {FINISH_SHARED_BYTES}")
-    out = torch.empty((3 * deg, 16, k), dtype=torch.int32, device=tot.device)
+    out = torch.empty((3 * deg, 16, k), dtype=torch.int32, device=dev)
     K.launch("msm_finish", deg,
              tot.data_ptr(), tot.stride(0), tot.stride(1),
              head.data_ptr(), head.stride(0), head.stride(1),
              out.data_ptr(), out.stride(0), out.stride(1),
-             k, W, c, sched.data_ptr(), sched.numel(), g, slots)
+             k, W, c, sched.data_ptr(), sched.numel(), g, slots, device=dev)
     return out
 
 
@@ -173,8 +176,6 @@ def msm_tails_planes(deg: int, levels: list, m: torch.Tensor, nb: int) -> torch.
     16, L) planes: lane i is the sum, lowest level first, of the node of
     each level t whose bit of m[i] is set, limb for limb what
     pippenger._tails_plain gives.  CUDA tensors only."""
-    if not m.is_cuda:
-        raise ValueError(f"msm_tails m: expected a CUDA tensor, got {m.device}")
     if m.dtype != torch.int64 or m.dim() != 1 or not m.is_contiguous():
         raise ValueError(f"msm_tails: m must be a contiguous (L,) int64 vector, got "
                          f"{m.dtype} {tuple(m.shape)}")
@@ -184,16 +185,17 @@ def msm_tails_planes(deg: int, levels: list, m: torch.Tensor, nb: int) -> torch.
     table = []
     for t, lvl in enumerate(levels):
         _check(deg, lvl, f"msm_tails level {t}")
-        if lvl.shape[2] != 1 << (nb - t) or lvl.device != m.device:
-            raise ValueError(f"msm_tails: level {t} is {tuple(lvl.shape)} on {lvl.device}, "
-                             f"expected width {1 << (nb - t)} on {m.device}")
+        if lvl.shape[2] != 1 << (nb - t):
+            raise ValueError(f"msm_tails: level {t} is {tuple(lvl.shape)}, "
+                             f"expected width {1 << (nb - t)}")
         table += [lvl.data_ptr(), lvl.stride(0), lvl.stride(1)]
-    sched, g, slots = _schedule_on(rcb_schedule.tails_schedule, deg, str(m.device))
+    dev = K.launch_device("msm_tails", *levels, others=(m,))
+    sched, g, slots = _schedule_on(rcb_schedule.tails_schedule, deg, str(dev))
     lanes = m.shape[0]
-    out = torch.empty((3 * deg, 16, lanes), dtype=torch.int32, device=m.device)
+    out = torch.empty((3 * deg, 16, lanes), dtype=torch.int32, device=dev)
     if lanes:
         words = (ctypes.c_longlong * len(table))(*table)        # copied into the launch
         K.launch("msm_tails", deg, ctypes.addressof(words), nb + 1, m.data_ptr(), lanes,
                  out.data_ptr(), out.stride(0), out.stride(1), sched.data_ptr(), sched.numel(),
-                 g, slots)
+                 g, slots, device=dev)
     return out

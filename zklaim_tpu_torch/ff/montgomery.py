@@ -237,20 +237,17 @@ def mont_mul_k1(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tens
     element strides (1, 16), or (1, 0) for a broadcast constant."""
     from .. import kernels as K
 
-    K.check_planes(a, "mont_mul a")
-    K.check_planes(b, "mont_mul b")
-    if a.device != b.device:
-        raise ValueError("mont_mul: operands on different devices")
+    dev = K.launch_device("mont_mul", a, b)
     shape = torch.broadcast_shapes(a.shape, b.shape)
     if shape[-1] != L:
         raise ValueError(f"mont_mul: trailing limb axis must be {L}, got {shape}")
-    out = torch.empty(shape, dtype=torch.int32, device=a.device)
+    out = torch.empty(shape, dtype=torch.int32, device=dev)
     n = out.numel() // L
     if n == 0:
         return out
     (ta, a_ls, a_es), (tb, b_ls, b_es) = _k1_operand(a, shape), _k1_operand(b, shape)
     K.launch("mont_mul", ta.data_ptr(), a_ls, a_es, tb.data_ptr(), b_ls, b_es,
-             out.data_ptr(), 1, L, n, spec.field_id)
+             out.data_ptr(), 1, L, n, spec.field_id, device=dev)
     return out
 
 
@@ -316,7 +313,7 @@ def mont_pow_k1(spec: FieldSpec, a: torch.Tensor, exp_bits) -> torch.Tensor:
     uses 16-byte loads where the data is 16-byte aligned."""
     from .. import kernels as K
 
-    K.check_planes(a, "mont_pow a")
+    dev = K.launch_device("mont_pow", a)
     if a.dim() < 1 or a.shape[-1] != L:
         raise ValueError(f"mont_pow: trailing limb axis must be {L}, got {tuple(a.shape)}")
     words, nbits = pack_exponent(exp_bits)
@@ -326,7 +323,7 @@ def mont_pow_k1(spec: FieldSpec, a: torch.Tensor, exp_bits) -> torch.Tensor:
     if n:
         exp_words = (ctypes.c_uint32 * 8)(*words)      # read by the launcher before it returns
         K.launch("mont_pow", a.data_ptr(), out.data_ptr(), n,
-                 ctypes.addressof(exp_words), nbits, spec.field_id)
+                 ctypes.addressof(exp_words), nbits, spec.field_id, device=dev)
     return out
 
 

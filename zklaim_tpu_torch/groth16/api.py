@@ -152,19 +152,27 @@ def witness_plain_limbs(witness) -> np.ndarray:
 
 
 def h_plain(qap: QAP, w_plain: torch.Tensor, witness=None,
-            what: str = "unsatisfied constraint") -> torch.Tensor:
+            what: str = "unsatisfied constraint", mark=None) -> torch.Tensor:
     """Plain witness limbs -> plain H coefficients (m - 1, 16).
 
     Raises ValueError(f"{what}: <first unsatisfied constraint>") before any
     MSM if the witness does not satisfy the constraints:
-    mont_mul(<A_j,w>, <B_j,w>) != <C_j,w> on some row."""
+    mont_mul(<A_j,w>, <B_j,w>) != <C_j,w> on some row.  mark(name), where
+    given, is called at the end of each step: the witness map, the
+    satisfaction check, QAP.h_coefficients' steps, from_mont."""
+    mark = mark or (lambda name: None)
     w_mont = M.to_mont(FR, w_plain)
     evals = qap.constraint_evals(w_mont)
+    mark("witness map (to_mont + constraint_evals)")
     a_ev, b_ev, c_ev = evals
     if bool((M.mont_mul(FR, a_ev, b_ev) != c_ev).any()):
         where = qap.cs.first_unsatisfied(witness) if qap.cs is not None else None
         raise ValueError(f"{what}: {where}")
-    return M.from_mont(FR, qap.h_coefficients(evals))[: qap.m - 1]
+    mark("satisfaction check")
+    h = qap.h_coefficients(evals, mark)
+    h = M.from_mont(FR, h)[: qap.m - 1]
+    mark("from_mont")
+    return h
 
 
 def prove_sums(pk: ProvingKey, w_plain: torch.Tensor, h: torch.Tensor, msm_c: int = 8):

@@ -130,12 +130,20 @@ class QAP:
             out.append(M.reduce_wide(FR, lazy))
         return tuple(out)
 
-    def h_coefficients(self, evals) -> torch.Tensor:
+    def h_coefficients(self, evals, mark=None) -> torch.Tensor:
         """H(x) = (A(x)B(x) - C(x)) / Z(x) coefficients, (m, 16) mont.
 
         evals: constraint_evals(w_mont).  The last coefficient is
-        identically zero (deg H = m - 2)."""
+        identically zero (deg H = m - 2).  mark(name), where given, is
+        called at the end of each step (the six transforms, the pointwise
+        quotient, the seventh transform)."""
+        mark = mark or (lambda name: None)
         dom = self.domain
         a_cos, b_cos, c_cos = (dom.coset_ntt(dom.intt(e)) for e in evals)
+        mark("3 intt + 3 coset_ntt (6 transforms, K1 scalings)")
         num = M.sub_mod(FR, M.mont_mul(FR, a_cos, b_cos), c_cos)
-        return dom.coset_intt(M.mont_mul(FR, num, dom.z_coset_inv_mont))
+        quot = M.mont_mul(FR, num, dom.z_coset_inv_mont)
+        mark("pointwise (a b - c) / Z")
+        h = dom.coset_intt(quot)
+        mark("coset_intt (7th transform, K1 scalings)")
+        return h

@@ -13,10 +13,12 @@ plain C interface and loaded with ctypes:
 fresh checkout builds everything on its first launch.  Nothing here
 touches CUDA at import time: the CPU tests import every module.
 
-Every launch goes through `launch`, which passes PyTorch's current
-stream, raises if the C launcher returns a CUDA error, and counts the
-launch in LAUNCHES -- the count a run reads to show that its main path
-went through the kernels.  The C functions are looked up and given their
+Every launch goes through `launch`, which runs the C launcher on the card
+its operands lie on (`launch_device` finds it and raises where they lie on
+the CPU or on two cards), under that device's guard and on that device's
+current PyTorch stream, raises if the launcher returns a CUDA error, and
+counts the launch in LAUNCHES -- the count a run reads to show that its
+main path went through the kernels.  The C functions are looked up and given their
 argument types once, when the library is loaded.
 """
 
@@ -49,7 +51,7 @@ _I = ctypes.c_int
 KERNELS = {
     "mont_mul": ("zk_mont_mul", [_P, _I64, _I64, _P, _I64, _I64, _P, _I64, _I64, _I64, _I]),
     "mont_pow": ("zk_mont_pow", [_P, _P, _I64, _P, _I, _I]),
-    "ntt_local": ("zk_ntt_local", [_P, _I64, _P, _I64, _I, _I]),
+    "ntt_local": ("zk_ntt_local", [_P, _P, _I64, _P, _I64, _I, _I, _I]),
     "ntt_stage": ("zk_ntt_stage", [_P, _I64, _P, _I64, _I, _I, _I, _I]),
     "point_add": ("zk_point_add", [_I, _P, _I64, _I64, _P, _I64, _I64, _P, _I64, _I64, _I64]),
     "point_double": ("zk_point_double", [_I, _P, _I64, _I64, _P, _I64, _I64, _I64]),
@@ -149,11 +151,17 @@ def library() -> ctypes.CDLL:
     return _LIB
 
 
-def launch(name: str, *args) -> None:
-    """Launch kernel `name` on the current stream; raise on a CUDA error."""
+def launch(name: str, *args, device: torch.device) -> None:
+    """Launch kernel `name` on `device` -- the card its operands lie on
+    (launch_device) -- and that device's current stream; raise on a CUDA
+    error.  The launcher runs under the device's guard, so what it sets
+    per device (a kernel's shared-memory limit) applies to that card."""
     if _LIB is None:
         library()
-    rc = _FUNCTIONS[name](*args, torch.cuda.current_stream().cuda_stream)
+    if device.type != "cuda":
+        raise ValueError(f"kernel {name}: launched on {device}, not a CUDA device")
+    with torch.cuda.device(device):
+        rc = _FUNCTIONS[name](*args, torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"kernel {name} launch failed: CUDA error {rc}")
     LAUNCHES[name] += 1
@@ -165,3 +173,19 @@ def check_planes(t: torch.Tensor, what: str) -> None:
         raise ValueError(f"{what}: expected a CUDA tensor, got {t.device}")
     if t.dtype != torch.int32:
         raise ValueError(f"{what}: expected int32 limbs, got {t.dtype}")
+
+
+def launch_device(what: str, *planes: torch.Tensor, others=()) -> torch.device:
+    """The one card a launch's operands lie on: each of `planes` passes
+    check_planes, each of `others` (operands of another type) is a CUDA
+    tensor, and all lie on one device, which is returned for `launch`.
+    Raises ValueError otherwise: nothing runs on another device."""
+    for i, t in enumerate(planes):
+        check_planes(t, f"{what} operand {i}")
+    for t in others:
+        if not t.is_cuda:
+            raise ValueError(f"{what}: expected a CUDA tensor, got {t.device}")
+    devices = {t.device for t in (*planes, *others)}
+    if len(devices) != 1:
+        raise ValueError(f"{what}: operands on {sorted(map(str, devices))}, not on one device")
+    return devices.pop()

@@ -159,8 +159,9 @@ def curve_inputs(deg: int, n: int, rng: np.random.Generator, device):
 def kernel_cases(device, n_field: int = 1 << 15, n_ntt: int = 1 << 15, n_ntt_big: int = 1 << 22,
                  n_g1: int = 1 << 16, n_g2: int = 1 << 15, seed: int = 0) -> list:
     """The kernels of the proving paths at the given widths (defaults: the
-    main path's; K1 also on an unaligned operand; K3 also at the bench's
-    largest transform, n_ntt_big, in two passes; the doubling also at 4 G1
+    main path's; K1 also on an unaligned operand; K2 also through its
+    gather entry; K2 and K3 also at the bench's largest transform,
+    n_ntt_big, K3 there in two passes; the doubling also at 4 G1
     lanes and 1 G2 lane, where a launch is all host), msm_tails at the
     credential path's shapes (tails_cases), mont_pow and msm_finish at
     theirs (loop_cases), then the four probes (probe_cases)."""
@@ -183,18 +184,30 @@ def kernel_cases(device, n_field: int = 1 << 15, n_ntt: int = 1 << 15, n_ntt_big
                       3 * n_field, n_field))
 
     # a run of stages reads and writes the n elements once and reads the
-    # twiddles of its stages (2^s at stage s); one product per butterfly
+    # twiddles of its stages (2^s at stage s); one product per butterfly.
+    # K2's gather entry (a transform's first step) reads the n rows of the
+    # AoS input in bit-reversed order and writes new planes: the same work.
+    # The in-place entries run on a copy of their input, whose time their
+    # call and device times include (tools/ntt_profile.py times them alone).
     for n, once in ((n_ntt, False), (n_ntt_big, True)):
         dom = get_domain(n, str(device))
         lt = min(gpu_ntt.TILE, n).bit_length() - 1
         x = _fr_planes(n, rng, device)
+        rows = x.t().contiguous()
         passes = len(gpu_ntt.global_passes(n))
         for tw, name in ((dom.tw_flat, "forward"), (dom.tw_inv_flat, "inverse")):
-            if not once:
-                cases.append(Case("ntt_local", f"K2 ntt_local {name} n={n}",
-                                  lambda x=x, tw=tw: gpu_ntt.ntt_local(x.clone(), tw),
-                                  lambda x=x, tw=tw, lt=lt: gpu_ntt.ntt_plain(x, tw, range(lt)),
-                                  2 * n + (1 << lt) - 1, lt * n // 2))
+            if name == "forward":             # the entry every transform takes: K2's headline
+                cases.append(Case("ntt_local", f"K2 ntt_local_rows (bit-reversal gather) {name} "
+                                               f"n={n}",
+                                  lambda r=rows, tw=tw: gpu_ntt.ntt_local_rows(r, tw),
+                                  lambda r=rows, tw=tw, lt=lt: gpu_ntt.ntt_plain(
+                                      r.index_select(0, gpu_ntt.bitrev_rows(r.shape[0], r.device))
+                                      .t().contiguous(), tw, range(lt)),
+                                  2 * n + (1 << lt) - 1, lt * n // 2, plain_once=once))
+            cases.append(Case("ntt_local", f"K2 ntt_local {name} n={n}",
+                              lambda x=x, tw=tw: gpu_ntt.ntt_local(x.clone(), tw),
+                              lambda x=x, tw=tw, lt=lt: gpu_ntt.ntt_plain(x, tw, range(lt)),
+                              2 * n + (1 << lt) - 1, lt * n // 2, plain_once=once))
             if dom.k > lt:
                 cases.append(Case("ntt_stage", f"K3 ntt_stage {name} n={n} ({passes} passes)",
                                   lambda x=x, tw=tw: gpu_ntt.ntt_global(x.clone(), tw),

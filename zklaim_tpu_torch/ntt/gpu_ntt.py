@@ -1,22 +1,29 @@
 """Radix-2 DIT butterfly stages on (16, n) Fr limb planes: kernels K2/K3.
 
-Counterpart of zklaim_tpu/ntt/pallas_ntt.py.  The input is already in
-bit-reversed order; `ntt_stages` runs all k = log2(n) stages in place:
+Counterpart of zklaim_tpu/ntt/pallas_ntt.py.  The k = log2(n) stages of a
+transform, on planes already in bit-reversed order, are two steps:
 
-  - `ntt_local`: the stages with pair distance half < tile, one K2 launch
-    (one CTA per tile held in shared memory);
+  - `ntt_local`: the stages with pair distance half < tile, one K2 launch:
+    a tile on a thread-block cluster of CLUSTER CTAs (`local_split`), the
+    stages that pair two CTAs through distributed shared memory;
   - `ntt_global`: the stages with half >= tile in passes of up to
     MAX_PASS_STAGES consecutive stages, one K3 launch a pass: those stages
     pair elements of one column (j mod tile) only, so a CTA holds C columns
     x the 2^G rows its pass pairs in shared memory (`global_passes` plans
     the passes and C).
 
+`ntt_local_rows` is K2's other entry, the one a transform starts with: it
+reads the (n, 16) AoS input in bit-reversed row order (`bitrev_rows`) and
+writes new planes, in the same launch as the local stages.
+
 Twiddles come as one flat (16, n - 1) plane, stage s at offset 2^s - 1
 (see NTTDomain.tw_flat).  On a CUDA tensor the wrappers launch the
 kernels; on a CPU tensor `ntt_local` runs `ntt_plain`, the plain version,
-on the same stages, and `ntt_global` runs `ntt_global_columns_plain`, which
-walks the kernel's passes, CTAs and twiddle indices; `ntt_plain` is its
-oracle in the tests.
+on the same stages, `ntt_local_rows` the same after the bit-reversal
+index_select and the transpose, and `ntt_global` runs
+`ntt_global_columns_plain`, which walks the kernel's passes, CTAs and
+twiddle indices.  `ntt_local_cluster_plain` walks K2's clusters the same
+way.  `ntt_plain` is the oracle of both walks in the tests.
 """
 
 from __future__ import annotations
@@ -27,7 +34,9 @@ from .. import kernels as K
 from ..ff import montgomery as M
 from ..ff.montgomery import FR
 
-TILE = 1024        # K2 tile: 1024 x 32 B = 32 KiB of shared memory per CTA
+TILE = 1024        # K2 tile, a cluster of CTAs; K3's passes start at stage log2(TILE)
+CLUSTER = 4        # K2: CTAs a tile, 256 elements and 128 threads each at TILE
+MAX_CTA_LOG = 10   # K2: 2^10 elements a CTA at most, 512 threads (csrc/ntt.cu:zk_ntt_local)
 MAX_PASS_STAGES = 6     # K3: stages a launch
 PASS_ELEMENTS = 2048    # K3: 2^G C elements a CTA at most, 64 KiB (csrc/ntt.cu:NTT_PASS_SHARED_MAX)
 PASS_COLUMNS = 32       # K3: columns a CTA at most (128 B of each limb row)
@@ -55,24 +64,134 @@ def ntt_plain(x: torch.Tensor, tw_flat: torch.Tensor, stages: range) -> torch.Te
     return a.t().contiguous()
 
 
-def _check(x: torch.Tensor, tw_flat: torch.Tensor) -> None:
-    K.check_planes(x, "ntt x")
-    K.check_planes(tw_flat, "ntt twiddles")
+def _check(x: torch.Tensor, tw_flat: torch.Tensor) -> torch.device:
+    dev = K.launch_device("ntt", x, tw_flat)
     n = x.shape[1]
     if x.shape[0] != 16 or not x.is_contiguous() or n & (n - 1) or n < 2:
         raise ValueError(f"ntt: expected contiguous (16, 2^k) planes, got {tuple(x.shape)}")
-    if tw_flat.shape != (16, n - 1) or tw_flat.stride(1) != 1:
-        raise ValueError(f"ntt: twiddle plane must be (16, {n - 1}), got {tuple(tw_flat.shape)}")
+    if tw_flat.shape != (16, n - 1) or (n > 2 and tw_flat.stride(1) != 1):
+        raise ValueError(f"ntt: twiddle plane must be (16, {n - 1}) with unit element stride, "
+                         f"got {tuple(tw_flat.shape)} strides {tw_flat.stride()}")
+    return dev
 
 
-def ntt_local(x: torch.Tensor, tw_flat: torch.Tensor, tile: int = TILE) -> torch.Tensor:
-    """The stages with pair distance below `tile`: K2 in place on CUDA."""
-    lt = _log_tile(x.shape[1], tile)
+def local_split(n: int, tile: int = TILE, cluster: int = CLUSTER) -> tuple:
+    """K2's split of a transform of n: (lt, lc, le) -- 2^lt elements a tile
+    on a cluster of 2^lc CTAs of 2^le elements (2^(le - 1) threads) each.
+    A CTA keeps at least 2 elements, so a tile below 2 cluster elements
+    takes fewer CTAs."""
+    if cluster < 1 or cluster & (cluster - 1) or cluster > 8:
+        raise ValueError(f"ntt: a cluster of {cluster} CTAs (1, 2, 4 or 8)")
+    lt = _log_tile(n, tile)
+    lc = min(cluster.bit_length() - 1, max(lt - 1, 0))
+    if lt - lc > MAX_CTA_LOG:
+        raise ValueError(f"ntt: a CTA of 2^{lt - lc} elements (at most 2^{MAX_CTA_LOG})")
+    return lt, lc, lt - lc
+
+
+def local_launch(n: int, tile: int = TILE, cluster: int = CLUSTER) -> dict:
+    """The launch K2 makes for a transform of n: cluster size, CTAs, threads
+    a CTA and dynamic shared memory a CTA (csrc/ntt.cu:zk_ntt_local)."""
+    lt, lc, le = local_split(n, tile, cluster)
+    e = 1 << le
+    return {"cluster": 1 << lc, "ctas": n >> le, "threads": e // 2,
+            "shared_bytes": (e + (e - 1) + lc * (e // 2)) * 8 * 4}
+
+
+def bitrev_rows(n: int, device) -> torch.Tensor:
+    """Row read for element j of a transform of n = 2^k: j's k bits
+    reversed, as the kernel takes them (__brev(j) >> (32 - k))."""
+    k = n.bit_length() - 1
+    j = torch.arange(n, dtype=torch.int64, device=device)
+    rev = torch.zeros_like(j)
+    for b in range(32):
+        rev |= ((j >> b) & 1) << (31 - b)
+    return rev >> (32 - k)
+
+
+def ntt_local_cluster_plain(x: torch.Tensor, tw_flat: torch.Tensor, tile: int = TILE,
+                            cluster: int = CLUSTER, rows: bool = False) -> torch.Tensor:
+    """Plain version of K2 that walks the kernel's split (local_split): every
+    CTA (rank = its index mod the cluster size) loads its elements -- rows
+    `bitrev_rows` of (n, 16) AoS input where `rows`, else columns of (16, n)
+    planes -- and stages its twiddles at the kernel's offsets; runs the
+    stages within a CTA with the kernel's pair and twiddle indices, then the
+    stages that pair CTAs r and r ^ 2^c, each thread's pair and twiddle as
+    the kernel computes them.  Returns new (16, n) planes."""
+    n = x.shape[0] if rows else x.shape[1]
+    lt, lc, le = local_split(n, tile, cluster)
+    e, h = 1 << le, 1 << (le - 1)
+    dev = x.device
+    blk = torch.arange(n >> le, device=dev)[:, None]
+    rank = blk & ((1 << lc) - 1)
+    j = (blk << le) + torch.arange(e, device=dev)[None, :]               # (CTAs, E)
+    sm = x[bitrev_rows(n, dev)[j]] if rows else x.t()[j]                 # (CTAs, E, 16)
+    tw = tw_flat.t()
+    t = torch.arange(h, device=dev)
+    cross_l, staged = [], [tw[: e - 1].expand(n >> le, e - 1, 16)]
+    for c in range(lc):
+        lo = rank & ~(1 << c)
+        cross_l.append((((rank >> c) & 1) << (le - 1)) | t[None, :])     # (CTAs, H)
+        r = ((lo & ((1 << c) - 1)) << le) + cross_l[c]
+        staged.append(tw[(1 << (le + c)) - 1 + r])
+    smt = torch.cat(staged, dim=1)                                       # (CTAs, TW, 16)
+    for s in range(le):
+        half = 1 << s
+        r = t & (half - 1)
+        e0 = ((t >> s) << (s + 1)) + r
+        tb = M.mont_mul_plain(FR, sm[:, e0 + half], smt[:, half - 1 + r])
+        a = sm[:, e0]
+        sm[:, e0], sm[:, e0 + half] = M.add_mod(FR, a, tb), M.sub_mod(FR, a, tb)
+    for c in range(lc):
+        lo_blk = (blk & ~((1 << lc) - 1)) | (rank & ~(1 << c))            # (CTAs, 1)
+        hi_blk = lo_blk | (1 << c)
+        lo_blk, hi_blk = lo_blk.expand(-1, h), hi_blk.expand(-1, h)
+        tb = M.mont_mul_plain(FR, sm[hi_blk, cross_l[c]], smt[:, e - 1 + c * h + t])
+        a = sm[lo_blk, cross_l[c]]
+        sm[lo_blk, cross_l[c]], sm[hi_blk, cross_l[c]] = M.add_mod(FR, a, tb), M.sub_mod(FR, a, tb)
+    out = torch.empty((n, 16), dtype=x.dtype, device=dev)
+    out[j] = sm
+    return out.t().contiguous()
+
+
+def ntt_local(x: torch.Tensor, tw_flat: torch.Tensor, tile: int = TILE,
+              cluster: int = CLUSTER) -> torch.Tensor:
+    """The stages with pair distance below `tile` on (16, n) planes in
+    bit-reversed order: K2 in place on CUDA."""
+    n = x.shape[1]
     if not x.is_cuda:
-        return ntt_plain(x, tw_flat, range(lt))
-    _check(x, tw_flat)
-    K.launch("ntt_local", x.data_ptr(), x.shape[1], tw_flat.data_ptr(), tw_flat.stride(0), lt, lt)
+        return ntt_plain(x, tw_flat, range(_log_tile(n, tile)))
+    dev = _check(x, tw_flat)
+    lt, lc, _ = local_split(n, tile, cluster)
+    K.launch("ntt_local", x.data_ptr(), x.data_ptr(), n, tw_flat.data_ptr(), tw_flat.stride(0),
+             lt, lc, 0, device=dev)
     return x
+
+
+def ntt_local_rows(x: torch.Tensor, tw_flat: torch.Tensor, tile: int = TILE,
+                   cluster: int = CLUSTER, bitrev: torch.Tensor | None = None) -> torch.Tensor:
+    """A transform's first step: (n, 16) AoS rows in natural order -> new
+    (16, n) planes after the bit reversal and the stages with pair distance
+    below `tile`.  CUDA: one K2 launch that gathers the rows itself; CPU:
+    the bit-reversal index_select (through `bitrev`, the domain's table,
+    where given), the transpose and ntt_plain."""
+    n = x.shape[0]
+    if x.dim() != 2 or x.shape[1] != 16 or n & (n - 1) or n < 2:
+        raise ValueError(f"ntt: expected (2^k, 16) rows, got {tuple(x.shape)}")
+    if not x.is_cuda:
+        rev = bitrev_rows(n, x.device) if bitrev is None else bitrev
+        planes = x.index_select(0, rev).t().contiguous()
+        return ntt_plain(planes, tw_flat, range(_log_tile(n, tile)))
+    dev = K.launch_device("ntt", x, tw_flat)
+    x = x.contiguous()
+    if x.data_ptr() % 16:
+        raise ValueError("ntt: K2 reads 16-byte aligned rows")
+    out = torch.empty((16, n), dtype=torch.int32, device=dev)
+    _check(out, tw_flat)
+    lt, lc, _ = local_split(n, tile, cluster)
+    K.launch("ntt_local", x.data_ptr(), out.data_ptr(), n, tw_flat.data_ptr(), tw_flat.stride(0),
+             lt, lc, 1, device=dev)
+    return out
 
 
 def global_passes(n: int, tile: int = TILE) -> list:
@@ -138,17 +257,11 @@ def ntt_global(x: torch.Tensor, tw_flat: torch.Tensor, tile: int = TILE) -> torc
     CUDA."""
     if not x.is_cuda:
         return ntt_global_columns_plain(x, tw_flat, tile)
-    _check(x, tw_flat)
+    dev = _check(x, tw_flat)
     n = x.shape[1]
     lt = _log_tile(n, tile)
     for s0, g, c in global_passes(n, tile):
         K.launch("ntt_stage", x.data_ptr(), n, tw_flat.data_ptr(), tw_flat.stride(0), lt, s0, g,
-                 c.bit_length() - 1)
+                 c.bit_length() - 1, device=dev)
     return x
 
-
-def ntt_stages(x: torch.Tensor, tw_flat: torch.Tensor, tile: int = TILE) -> torch.Tensor:
-    """Every butterfly stage on (16, n) bit-reversed planes (n = 1: none)."""
-    if x.shape[1] == 1:
-        return x
-    return ntt_global(ntt_local(x, tw_flat, tile), tw_flat, tile)

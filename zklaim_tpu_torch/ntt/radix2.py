@@ -3,9 +3,10 @@
 Counterpart of zklaim_tpu/ntt/radix2.py with the same host tables
 (omega, bit reversal, per-stage twiddles, coset powers, n^{-1},
 Z_H(g)^{-1}).  A transform takes AoS (n, 16) Montgomery limbs: a bit-
-reversal index_select, one transpose to (16, n) SoA planes, the butterfly
-stages of gpu_ntt (K2 + K3 on CUDA), one transpose back.  The n^{-1}
-scale and the coset shifts are mont_mul calls (K1 on CUDA).
+reversal index_select and one transpose to (16, n) SoA planes (on CUDA
+both inside K2's load: gpu_ntt.ntt_local_rows), the butterfly stages of
+gpu_ntt (K2 + K3 on CUDA), one transpose back.  The n^{-1} scale and the
+coset shifts are mont_mul calls (K1 on CUDA).
 
 The four tables of n powers (twiddles, inverse twiddles, coset powers and
 their inverses) are built on the domain's device (`_device_powers`: log2(n)
@@ -70,11 +71,7 @@ class NTTDomain:
         self.shift = FR_GENERATOR          # coset shift g
         self.shift_inv = pow(self.shift, R - 2, R)
 
-        idx = np.arange(n, dtype=np.int64)
-        rev = np.zeros(n, dtype=np.int64)
-        for b in range(k):
-            rev |= ((idx >> b) & 1) << (k - 1 - b)
-        self.bitrev = torch.from_numpy(rev).to(self.device)
+        self.bitrev = gpu_ntt.bitrev_rows(n, self.device)
 
         # flat SoA twiddle planes: stage s (m = 2^(s+1)) holds omega_m^j,
         # j < m/2, at offset 2^s - 1
@@ -90,8 +87,10 @@ class NTTDomain:
     def _transform(self, x: torch.Tensor, tw_flat: torch.Tensor) -> torch.Tensor:
         if x.shape != (self.n, 16):
             raise ValueError(f"expected ({self.n}, 16) limbs, got {tuple(x.shape)}")
-        planes = x.index_select(0, self.bitrev).t().contiguous()
-        return gpu_ntt.ntt_stages(planes, tw_flat).t().contiguous()
+        if self.n == 1:
+            return x.clone()
+        planes = gpu_ntt.ntt_local_rows(x, tw_flat, bitrev=self.bitrev)
+        return gpu_ntt.ntt_global(planes, tw_flat).t().contiguous()
 
     def ntt(self, x: torch.Tensor) -> torch.Tensor:
         """Coefficients -> evaluations on <omega>.  x: (n, 16) mont."""

@@ -55,15 +55,16 @@ def point_add_tiled(p: torch.Tensor, q: torch.Tensor, tile: int) -> torch.Tensor
         if t.dim() != 3 or t.shape[:2] != (3, 16) or (t.shape[2] > 1 and t.stride(2) != 1):
             raise ValueError(f"{what}: expected (3, 16, n) planes with unit element stride, "
                              f"got shape {tuple(t.shape)} strides {t.stride()}")
-    if p.shape != q.shape or p.device != q.device or tile < 1:
+    dev = K.launch_device("point_add_tiled", p, q)
+    if p.shape != q.shape or tile < 1:
         raise ValueError(f"point_add_tiled: {tuple(p.shape)} vs {tuple(q.shape)}, tile {tile}")
     n = p.shape[2]
-    out = torch.empty((3, 16, n), dtype=torch.int32, device=p.device)
+    out = torch.empty((3, 16, n), dtype=torch.int32, device=dev)
     if n:
         K.launch("point_add_tiled",
                  p.data_ptr(), p.stride(0), p.stride(1),
                  q.data_ptr(), q.stride(0), q.stride(1),
-                 out.data_ptr(), out.stride(0), out.stride(1), n, tile)
+                 out.data_ptr(), out.stride(0), out.stride(1), n, tile, device=dev)
     return out
 
 

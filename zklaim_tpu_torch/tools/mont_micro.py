@@ -53,14 +53,14 @@ def mont_chain(x: torch.Tensor, k: int) -> torch.Tensor:
     (canonical limbs): one K6 launch on CUDA, the plain version on the CPU."""
     if not x.is_cuda:
         return mont_chain_plain(x, k)
-    K.check_planes(x, "mont_chain x")
+    dev = K.launch_device("mont_chain", x)
     if x.dim() != 2 or x.shape[0] != 16 or (x.shape[1] > 1 and x.stride(1) != 1) or k < 0:
         raise ValueError(f"mont_chain: expected (16, n) planes with unit element stride and "
                          f"k >= 0, got shape {tuple(x.shape)} strides {x.stride()} k {k}")
-    out = torch.empty((16, x.shape[1]), dtype=torch.int32, device=x.device)
+    out = torch.empty((16, x.shape[1]), dtype=torch.int32, device=dev)
     if x.shape[1]:
         K.launch("mont_chain", x.data_ptr(), x.stride(0), out.data_ptr(), out.stride(0),
-                 x.shape[1], k)
+                 x.shape[1], k, device=dev)
     return out
 
 

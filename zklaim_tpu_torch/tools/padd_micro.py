@@ -48,16 +48,16 @@ def point_add_chain(p: torch.Tensor, k: int) -> torch.Tensor:
     launch on CUDA, the plain version on the CPU."""
     if not p.is_cuda:
         return point_add_chain_plain(p, k)
-    K.check_planes(p, "point_add_chain p")
+    dev = K.launch_device("point_add_chain", p)
     if (p.dim() != 3 or p.shape[:2] != (3, 16) or (p.shape[2] > 1 and p.stride(2) != 1)
             or k < 0):
         raise ValueError(f"point_add_chain: expected (3, 16, n) planes with unit element "
                          f"stride and k >= 0, got shape {tuple(p.shape)} strides {p.stride()} k {k}")
     n = p.shape[2]
-    out = torch.empty((3, 16, n), dtype=torch.int32, device=p.device)
+    out = torch.empty((3, 16, n), dtype=torch.int32, device=dev)
     if n:
         K.launch("point_add_chain", p.data_ptr(), p.stride(0), p.stride(1),
-                 out.data_ptr(), out.stride(0), out.stride(1), n, k)
+                 out.data_ptr(), out.stride(0), out.stride(1), n, k, device=dev)
     return out
 
 

@@ -86,12 +86,13 @@ def op_chain(op: str, x: torch.Tensor, k: int) -> torch.Tensor:
         raise ValueError(f"op_chain {op}: expected {want}, got {x.dtype}")
     if not x.is_cuda:
         return op_chain_plain(op, x, k)
+    dev = K.launch_device("op_chain", others=(x,))
     if not x.is_contiguous() or k < 0:
         raise ValueError(f"op_chain: expected a contiguous tensor and k >= 0, got strides "
                          f"{x.stride()} k {k}")
     out = torch.empty_like(x)
     if x.numel():
-        K.launch("op_chain", OP_IDS[op], x.data_ptr(), out.data_ptr(), x.numel(), k)
+        K.launch("op_chain", OP_IDS[op], x.data_ptr(), out.data_ptr(), x.numel(), k, device=dev)
     return out
 
 

@@ -2,9 +2,10 @@
 
 Counterpart of tools/prove_profile.py, with its phase names: witness build,
 witness limbs -> device, h_pipeline (witness map + NTTs), each of the five
-MSMs alone, device -> host decode.  Every mark synchronises the device, so
-a phase's time is its own.  Before the repetitions it times what a fresh
-holder pays once on the host (circuit build, QAP.for_cs, the proving key's
+MSMs alone, device -> host decode; then h_pipeline again, split into its
+steps through the `mark` hooks of groth16.api.h_plain and
+QAP.h_coefficients.  Every mark synchronises the device, so a phase's time
+is its own.  Before the repetitions it times what a fresh holder pays once on the host (circuit build, QAP.for_cs, the proving key's
 import from bytes); after them, the prover as groth16.api.prove runs it
 (the four G1 sums as one msm_many, no synchronisation between the sums),
 and the verifier.
@@ -110,6 +111,14 @@ def measure(device, num_payloads: int = 1, reps: int = 2, seed: int = 5) -> list
         for deg, ev in ((1, ev_a), (1, ev_b1), (2, ev_b2), (1, ev_h), (1, ev_l)):
             C.planes_to_host_points(deg, ev)
         m.mark("device->host decode x5", g)
+        m.total(g)
+
+    for rep in range(reps):
+        g = f"h split {rep}"
+        w = circ.witness(inputs)
+        w_plain = to_tensor(A.witness_plain_limbs(w), device)
+        m.restart()
+        A.h_plain(qap, w_plain, w, mark=lambda name, g=g: m.mark(f"h: {name}", g))
         m.total(g)
 
     # the prover as groth16.api.prove runs it

@@ -18,7 +18,8 @@
    sustains.  K6-K9 must have launched.
    Then holds each of the twelve entries against its plain PyTorch version
    on the card, at the shapes its path gives it (K6 also at the width that
-   fills the card), limb for limb and, for K7's f32fma, bit for bit
+   fills the card; K2 and K3 also on the four-step NTT's batches of
+   transforms), limb for limb and, for K7's f32fma, bit for bit
    (tolerance 0 throughout: integer arithmetic, and a plain f32fma that
    rounds once as the fused one does).  Each case is timed twice: a call as
    the paths make it (CUDA events around 20 wrapper calls: mostly the host's
@@ -60,6 +61,18 @@
    prefix (G1 and G2), which is where point_double (K5) runs; intt(ntt(x)) =
    x at 2^16; every proof of a batched_prove verifies.  The six kernels of
    the paths and point_double must have launched.
+7b. Multi-device phase: zklaim_tpu_torch.parallel on a world of one over
+   NCCL (the script needs one card, and NCCL runs no two ranks on one
+   card): sharded_msm of 2^20 G1 points over the 1-D and the (1, 1)
+   host mesh, each equal to the local msm and the host's sum; ShardedNTT at
+   2^15 and 2^22, from_transposed(ntt_t(x)) = NTTDomain.ntt(x) and
+   intt_t(ntt_t(x)) = x, with ntt_t launching K2 twice and K3 once a pass
+   (a batch of transforms is one launch); batched_prove of 8 on
+   ZKlaimCircuit(1) over the mesh, byte for byte the 8 successive proves of
+   one seed, each verified; entry.run_multichip (2^15 points, an NTT of
+   2^15: the full widths ran just before) and tools.scaling_bench at S = 1.  Each time is printed beside its
+   one-device counterpart; the launch counts are set to 0 before the phase
+   and read after it.
 8. The phase splits of prove (with h_pipeline split into its steps) and
    setup (tools.prove_profile, tools.setup_profile), of one MSM pass
    (tools.msm_stages) and of the transform at 2^15 and 2^22
@@ -156,6 +169,162 @@ def _ptxas_of(ptxas: str, kernel: str) -> dict:
         elif entry and kernel in entry and ("Used" in line or "spill" in line):
             found.setdefault(entry, []).append(line.split("ptxas info    :")[-1].strip())
     return found
+
+
+def _multi_device_phase(dev, card: str, credential) -> dict:
+    """parallel/ on a world of one over NCCL (a file:// store in a temporary
+    directory): sharded_msm of 2^20 G1 points over the 1-D and the (1, 1)
+    host mesh against the local msm and the host's sum; ShardedNTT at 2^15
+    and 2^22 against NTTDomain (from_transposed(ntt_t(x)) = ntt(x),
+    intt_t(ntt_t(x)) = x), its batched K2 / K3 counted; batched_prove of 8
+    on ZKlaimCircuit(1) over the mesh against 8 successive proves from one
+    seed, byte for byte, each verified; run_multichip and scaling_bench at
+    S = 1.  Each time beside its one-device counterpart (host clock between
+    synchronises, least of 3 after a warm-up).  The launch counts are set to
+    0 before the phase and read after it."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from zklaim_tpu_torch import kernels as K
+    from zklaim_tpu_torch.claims import serde
+    from zklaim_tpu_torch.ec import curve as C
+    from zklaim_tpu_torch.entry import (multiple_rows, multiple_rows_sum, random_scalars,
+                                        run_multichip)
+    from zklaim_tpu_torch.ff import montgomery as M
+    from zklaim_tpu_torch.groth16.api import prove, verify
+    from zklaim_tpu_torch.msm.pippenger import msm
+    from zklaim_tpu_torch.ntt import gpu_ntt
+    from zklaim_tpu_torch.ntt.radix2 import get_domain
+    from zklaim_tpu_torch.parallel import mesh as MESH
+    from zklaim_tpu_torch.parallel.msm import sharded_msm
+    from zklaim_tpu_torch.parallel.ntt import ShardedNTT
+    from zklaim_tpu_torch.parallel.prove import batched_prove
+    from zklaim_tpu_torch.tools import scaling_bench
+    import numpy as np
+
+    def best_s(fn, reps=3):
+        fn()
+        best = float("inf")
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t0)
+        return best
+
+    res = {"seconds": {}}
+    torch.cuda.synchronize()
+    K.reset_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        if not MESH.init_distributed(f"file://{tmp}/store", 1, 0, device=dev):
+            raise AssertionError("the process group was not set up")
+        try:
+            res["backend"] = dist.get_backend()
+            if res["backend"] != "nccl":
+                raise AssertionError(f"a CUDA world on {res['backend']}, not NCCL")
+            mesh, hmesh = MESH.make_mesh(), MESH.make_host_mesh()
+            res["host_mesh"] = list(hmesh.devices.shape)
+
+            n = 1 << 20
+            t0 = time.perf_counter()
+            rows, k = multiple_rows(n, dev)
+            scalars = random_scalars(n, np.random.default_rng(SEED), dev)
+            host = multiple_rows_sum(k, scalars)
+            res["seconds"]["msm_inputs_host"] = time.perf_counter() - t0
+            got = {"local msm": msm(1, rows, scalars),
+                   "sharded_msm 1-D": sharded_msm(mesh, 1, rows, scalars),
+                   "sharded_msm (1, 1) host mesh": sharded_msm(hmesh, 1, rows, scalars,
+                                                               axis=("host", "chip"))}
+            for what, pt in got.items():
+                if C.planes_to_host_points(1, pt)[0] != host:
+                    raise AssertionError(f"{what} of 2^20 points differs from the host's sum")
+            res["seconds"]["msm_2^20"] = {
+                "local msm": best_s(lambda: msm(1, rows, scalars)),
+                "sharded_msm 1-D": best_s(lambda: sharded_msm(mesh, 1, rows, scalars)),
+                "sharded_msm (1, 1) host mesh": best_s(lambda: sharded_msm(
+                    hmesh, 1, rows, scalars, axis=("host", "chip")))}
+            print(f"[{card}] multi-device (NCCL, world of one): 2^20 G1 points, local msm, "
+                  f"sharded 1-D and (1, 1) host mesh all equal the host's sum; seconds "
+                  f"{json.dumps(res['seconds']['msm_2^20'])}", flush=True)
+            del rows, scalars
+
+            res["ntt"] = {}
+            for log2n in (15, 22):
+                m = 1 << log2n
+                dom = get_domain(m, str(dev))
+                x = M.to_mont(M.FR, random_scalars(m, np.random.default_rng(log2n), dev))
+                plan = ShardedNTT(mesh, m)
+                before = dict(K.LAUNCHES)
+                z = plan.ntt_t(plan.to_matrix(x))
+                torch.cuda.synchronize()
+                counts = {kk: K.LAUNCHES[kk] - before[kk] for kk in ("ntt_local", "ntt_stage")}
+                want = {"ntt_local": 2,
+                        "ntt_stage": len(gpu_ntt.global_passes(plan.n1, batch=plan.cols))
+                        + len(gpu_ntt.global_passes(plan.n2, batch=plan.rows))}
+                if counts != want:
+                    raise AssertionError(f"ntt_t at 2^{log2n} launched {counts}, expected {want}: "
+                                         f"a batch is one K2 launch and one K3 a pass")
+                if not torch.equal(plan.from_transposed(z), dom.ntt(x)):
+                    raise AssertionError(f"from_transposed(ntt_t(x)) != ntt(x) at 2^{log2n}")
+                if not torch.equal(plan.intt_t(z).reshape(m, 16), x):
+                    raise AssertionError(f"intt_t(ntt_t(x)) != x at 2^{log2n}")
+                xm = plan.to_matrix(x)
+                res["ntt"][log2n] = {
+                    "split": [plan.n1, plan.n2], "launches_ntt_t": counts,
+                    "ntt_t_s": best_s(lambda: plan.ntt_t(xm)),
+                    "round_trip_s": best_s(lambda: plan.intt_t(plan.ntt_t(xm))),
+                    "NTTDomain.ntt_s": best_s(lambda: dom.ntt(x)),
+                    "NTTDomain_round_trip_s": best_s(lambda: dom.intt(dom.ntt(x)))}
+                print(f"[{card}] multi-device: ShardedNTT 2^{log2n} ({plan.n1} x {plan.n2}) = "
+                      f"NTTDomain.ntt, round trip = x; {json.dumps(res['ntt'][log2n])}",
+                      flush=True)
+
+            cs, pk, vk, qap, witness, primary = credential
+            batch = [witness] * 8
+            prove(pk, qap, witness, random.Random(SEED))            # warm-up
+            t0 = time.perf_counter()
+            rng = random.Random(SEED)
+            one_by_one = [serde.proof_to_bytes(prove(pk, qap, w, rng)) for w in batch]
+            torch.cuda.synchronize()
+            res["seconds"]["8 successive prove"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            proofs = batched_prove(mesh, pk, qap, batch, random.Random(SEED))
+            torch.cuda.synchronize()
+            res["seconds"]["batched_prove of 8 over the mesh"] = time.perf_counter() - t0
+            if [serde.proof_to_bytes(p) for p in proofs] != one_by_one:
+                raise AssertionError("batched_prove over the mesh differs from successive proves")
+            if not all(verify(vk, primary, p) for p in proofs):
+                raise AssertionError("a proof of batched_prove over the mesh did not verify")
+            print(f"[{card}] multi-device: batched_prove of 8 on ZKlaimCircuit(1) = 8 successive "
+                  f"proves, byte for byte, all verify; batched "
+                  f"{res['seconds']['batched_prove of 8 over the mesh']:.3f} s, successive "
+                  f"{res['seconds']['8 successive prove']:.3f} s (after a warm-up)",
+                  flush=True)
+
+            # the full widths ran above; here the entry point itself, at the
+            # credential circuit's m
+            mc = run_multichip(mesh, n_points=1 << 15, ntt_n=1 << 15, msm_c=8, seed=SEED)
+            res["run_multichip"] = {"seconds": mc["seconds"], "verified": mc["verified"],
+                                    "host_mesh": list(mc["host_mesh"])}
+            print(f"[{card}] run_multichip (2^15 points, NTT 2^15, tiny circuit): "
+                  f"{json.dumps(res['run_multichip'])}", flush=True)
+            sb = scaling_bench.measure(dev, log2n=20)
+            scaling_bench.write(sb)
+            res["scaling_bench"] = sb
+            for row in sb["msm"] + sb["ntt"]:
+                print(f"[{card}] scaling_bench {json.dumps(row)}", flush=True)
+        finally:
+            MESH.shutdown_distributed()
+    torch.cuda.synchronize()
+    res["launches"] = dict(K.LAUNCHES)
+    print(f"[{card}] multi-device phase launches {res['launches']}", flush=True)
+    _require_launched(res["launches"], "the multi-device phase",
+                      ("mont_mul", "ntt_local", "ntt_stage", "point_add", "msm_tails",
+                       "msm_finish"))
+    return res
 
 
 def main() -> None:
@@ -273,6 +442,9 @@ def main() -> None:
             raise AssertionError(f"{case.label}: kernel disagrees with plain version")
         row = rows[case.kernel]
         row["max_abs_err"] = max(row["max_abs_err"], err)
+        row.setdefault("entries", []).append(
+            {"label": case.label, "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by})
         if row["ms"] is None:           # the first case of a kernel is its headline
             row.update(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound,
                        bound_by=bound_by)
@@ -420,7 +592,7 @@ def main() -> None:
     circ = ZKlaimCircuit(1)
     pk1, vk1, qap1 = setup(circ.cs, circ_rng, dev)
     inputs = [(pl.pre, pl.data_ref, pl.op_positions()) for pl in ctx.payloads]
-    batch = batched_prove(pk1, qap1, [circ.witness(inputs)] * 3, circ_rng)
+    batch = batched_prove(None, pk1, qap1, [circ.witness(inputs)] * 3, circ_rng)
     if len(batch) != 3 or not all(verify(vk1, circ.public_inputs(inputs), pr) for pr in batch):
         raise AssertionError("a proof of batched_prove did not verify")
     print(f"[{card}] checks: flat MSM = msm_ladder on 2^10 points (G1, G2); intt(ntt(x)) = x "
@@ -432,6 +604,13 @@ def main() -> None:
     for k in K.PATH_KERNELS + ("point_double",):
         rows[k]["launches_bench"] = launches[k]
     rows["point_double"]["launches"] = launches["point_double"]     # its path is msm_ladder's
+
+    # -- 7b. the multi-device path: a world of one over NCCL ----------------------
+    record["multi_device"] = _multi_device_phase(dev, card, (circ.cs, pk1, vk1, qap1,
+                                                             circ.witness(inputs),
+                                                             circ.public_inputs(inputs)))
+    for k in K.PATH_KERNELS:
+        rows[k]["launches_multi_device"] = record["multi_device"]["launches"][k]
 
     # -- 8. phase splits of prove, setup and one MSM pass -------------------------
     record["prove_profile"] = prove_profile.measure(dev)

@@ -168,7 +168,7 @@ def test_batched_prove_gives_the_bytes_of_successive_proves(small, monkeypatch):
     ws = [witness(3, 5)] * 2
     rng = random.Random(99)
     one_by_one = [serde.proof_to_bytes(prove(pk, qap, w, rng)) for w in ws]
-    batch = batched_prove(pk, qap, ws, random.Random(99))
+    batch = batched_prove(None, pk, qap, ws, random.Random(99))
     assert [serde.proof_to_bytes(p) for p in batch] == one_by_one
     assert one_by_one[0] != one_by_one[1] and len(computed) == 1
     assert all(verify(vk, [225], p) for p in batch)
@@ -178,7 +178,7 @@ def test_batched_prove_gives_the_bytes_of_successive_proves(small, monkeypatch):
     for raw in one_by_one:
         assert JA.verify(jvk, [225], JS.proof_from_bytes(raw))
         assert not JA.verify(jvk, [226], JS.proof_from_bytes(raw))
-    assert batched_prove(pk, qap, [], rng) == []
+    assert batched_prove(None, pk, qap, [], rng) == []
 
 
 def test_batched_prove_raises_on_an_unsatisfied_witness(small, monkeypatch):
@@ -200,7 +200,7 @@ def test_batched_prove_raises_on_an_unsatisfied_witness(small, monkeypatch):
     want = (template.replace("{i}", "1")
             .replace("{qap.cs.first_unsatisfied(witnesses[i])}", str(where)))
     with pytest.raises(ValueError) as err:
-        batched_prove(pk, qap, [witness(3, 5), bad], random.Random(1))
+        batched_prove(None, pk, qap, [witness(3, 5), bad], random.Random(1))
     assert str(err.value) == want
     with pytest.raises(ValueError, match="unsatisfied constraint"):
         prove(pk, qap, bad, random.Random(1))

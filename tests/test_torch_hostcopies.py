@@ -1,8 +1,10 @@
 """The port's own copies of the host modules against the originals.
 
 zklaim_tpu_torch imports nothing of zklaim_tpu, so it keeps copies of the
-host field/curve/pairing modules, of the issuer's signing module and of
-the native-library binding.  Each copy may differ from its original only
+host field/curve/pairing modules, of the issuer's signing module, of
+the native-library binding and of the legacy package (three host modules
+verbatim; the PoC circuit and the credential model, whose relative imports
+reach the port's circuit, gadgets and claims.api).  Each copy may differ from its original only
 in import lines and inside the module docstring; and the two pairing
 checks must agree on a valid and on an invalid Groth16 product.
 """
@@ -23,7 +25,9 @@ from zklaim_tpu_torch.ff.params import R
 
 ROOT = Path(__file__).resolve().parent.parent
 COPIES = ["ff/params.py", "ff/hostfield.py", "ff/fq12flat.py", "ec/hostcurve.py",
-          "ec/pairing.py", "claims/signing.py", "utils/native.py"]
+          "ec/pairing.py", "claims/signing.py", "utils/native.py",
+          "legacy/lamport.py", "legacy/merkle.py", "legacy/ecdsa_secp256k1.py",
+          "legacy/poc_circuit.py", "legacy/cred.py"]
 
 
 def _docstring_lines(source: str) -> int:

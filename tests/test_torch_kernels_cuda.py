@@ -1,6 +1,7 @@
 """Kernels K1-K9, mont_pow, msm_tails and msm_finish against their plain
-versions on the card (needs CUDA), K2 through both its entries, and every
-kernel on its operands' card (needs two).
+versions on the card (needs CUDA), K2 through both its entries, K2 and K3
+on batches of transforms (one launch a batch), and every kernel on its
+operands' card (needs two).
 
 Run on a machine with an NVIDIA GPU (no jax needed there, hence
 --noconftest):
@@ -328,6 +329,51 @@ def test_ntt_rows_entry_at_every_size_and_split(cuda):
                 lambda: gpu_ntt.ntt_local_rows(x.long(), dom.tw_flat)):
         with pytest.raises(ValueError):
             bad()
+
+
+def test_batched_transforms_launch_k2_once_and_k3_once_a_pass(cuda):
+    """NTTDomain's four transforms on (n, B, 16) on the card equal the CPU's,
+    B odd and even, at n = 2 .. 2^11 and the four-step NTT's shapes, and a
+    batch launches K2 once and K3 once a pass: LAUNCHES shows no loop over
+    B.  A strided batch (every other column of a wider input) transforms as
+    its contiguous copy; the batched entries at small tiles and clusters
+    equal the walks of the kernels' splits."""
+    import numpy as np
+
+    from zklaim_tpu_torch.ff.montgomery import FR
+    from zklaim_tpu_torch.kernels.cases import random_field
+    from zklaim_tpu_torch.ntt.radix2 import NTTDomain
+
+    for n, batch in ((2, 3), (4, 5), (256, 1), (256, 7), (2048, 3), (2048, 8), (256, 128),
+                     (128, 256)):
+        x = random_field(FR, n * batch, np.random.default_rng(n + batch), cuda).view(n, batch, 16)
+        gpu, cpu = NTTDomain(n, cuda), NTTDomain(n, "cpu")
+        passes = len(gpu_ntt.global_passes(n, batch=batch))
+        for op in ("ntt", "intt", "coset_ntt", "coset_intt"):
+            before = dict(K.LAUNCHES)
+            got = getattr(gpu, op)(x)
+            torch.cuda.synchronize()
+            assert K.LAUNCHES["ntt_local"] == before["ntt_local"] + 1, (n, batch, op)
+            assert K.LAUNCHES["ntt_stage"] == before["ntt_stage"] + passes, (n, batch, op)
+            assert max_abs_err(got.cpu(), getattr(cpu, op)(x.cpu())) == 0, (n, batch, op)
+    n, batch = 2048, 5
+    dom = NTTDomain(n, cuda)
+    wide = random_field(FR, n * 2 * batch, np.random.default_rng(9), cuda).view(n, 2 * batch, 16)
+    view = wide[:, ::2]
+    assert not view.is_contiguous()
+    assert max_abs_err(dom.ntt(view), dom.ntt(view.contiguous())) == 0
+    x = view.contiguous()
+    for tile, cluster in ((16, 4), (64, 8), (32, 2), (1024, 4)):
+        for tw in (dom.tw_flat, dom.tw_inv_flat):
+            got = gpu_ntt.ntt_local_rows(x, tw, tile, cluster)
+            want = gpu_ntt.ntt_local_cluster_plain(x, tw, tile, cluster, rows=True)
+            assert max_abs_err(got, want) == 0, (tile, cluster)
+            planes = got.clone()
+            assert max_abs_err(gpu_ntt.ntt_global(planes, tw, tile, n=n),
+                               gpu_ntt.ntt_global_columns_plain(got, tw, tile, n=n)) == 0
+    with pytest.raises(ValueError):                  # a width that is no multiple of n
+        gpu_ntt.ntt_global(torch.zeros((16, 3 * n // 2), dtype=torch.int32, device=cuda),
+                           dom.tw_flat, n=n)
 
 
 def test_kernels_launch_on_their_operands_card(cuda):

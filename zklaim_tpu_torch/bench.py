@@ -181,10 +181,12 @@ def bench_prover(runs: int = 3, device=None):
 
 
 def bench_batched(batch: int = 8, runs: int = 3, device=None):
-    """Batched proving throughput on the credential circuit on one device:
-    `batch` proofs of one circuit against one uploaded proving key."""
+    """Batched proving throughput on the credential circuit on a mesh of
+    one device: `batch` proofs of one circuit against one uploaded proving
+    key."""
     from .claims.circuit import ZKlaimCircuit
     from .groth16.api import setup, verify
+    from .parallel.mesh import make_mesh
     from .parallel.prove import batched_prove
 
     device = resolve_device(device)
@@ -194,11 +196,12 @@ def bench_batched(batch: int = 8, runs: int = 3, device=None):
     pk, vk, qap = setup(circ.cs, rng, device)
     inputs = [(p.pre, p.data_ref, p.op_positions()) for p in ctx.payloads]
     witnesses = [circ.witness(inputs)] * batch
+    mesh = make_mesh(1, device=device)
     _reset_peak(device)
     last = {}
 
     def run():
-        last["proofs"] = batched_prove(pk, qap, witnesses, rng)
+        last["proofs"] = batched_prove(mesh, pk, qap, witnesses, rng)
 
     best = _best_s(run, device, runs)
     assert verify(vk, circ.public_inputs(inputs), last["proofs"][0])

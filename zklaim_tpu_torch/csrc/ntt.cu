@@ -38,6 +38,15 @@
 // transpose to planes happen in the kernel's load.  GATHER = false reads and
 // writes (16, n) planes in place (already in bit-reversed order).
 //
+// A BATCH of B transforms of 2^k runs as one plane of width B 2^k, transform
+// b in segment b (plane elements b 2^k .. (b + 1) 2^k - 1): a tile never
+// crosses a segment (2^k is a multiple of the tile), and no stage of K2 or
+// K3 pairs elements of two segments, so both kernels take the width and k
+// apart and run the batch in one launch (K3: one a pass).  The gather entry
+// reads the (2^k, B, 16) input: element j of transform b is row
+// brev_k(j) B + b.  A thread reads one whole 64-byte row, two full 32-byte
+// sectors, whatever B is.
+//
 // K3 runs a PASS of up to 6 consecutive stages with half >= T in one launch:
 // those stages never mix columns (j mod T), so a CTA loads C adjacent
 // columns x the 2^G rows the pass pairs, runs the G stages in shared memory
@@ -87,6 +96,7 @@ __device__ __forceinline__ void butterfly(uint32_t* lo, uint32_t* hi, int e, int
 template <bool GATHER>
 __global__ void ntt_local_kernel(const int32_t* src, int32_t* dst, int64_t n, int log_n,
                                  const int32_t* __restrict__ tw, int64_t tw_ls, int le, int lc) {
+  // n: the plane's width, B = n >> log_n transforms of 2^log_n
   extern __shared__ uint32_t sm[];
   cg::cluster_group cluster = cg::this_cluster();
   const int E = 1 << le, H = E >> 1, TW = (E - 1) + lc * H;
@@ -96,8 +106,14 @@ __global__ void ntt_local_kernel(const int32_t* src, int32_t* dst, int64_t n, in
   const int t = threadIdx.x;
   for (int l = t; l < E; l += H) {
     const int64_t j = base + l;
-    const Fe v = GATHER ? fe_load_vec(src + ((int64_t)(__brev((unsigned)j) >> (32 - log_n)) << 4))
-                        : fe_load(src, n, 1, j);
+    Fe v;
+    if (GATHER) {
+      const int64_t seg = j >> log_n, jj = j & (((int64_t)1 << log_n) - 1);
+      const int64_t row = (int64_t)(__brev((unsigned)jj) >> (32 - log_n)) * (n >> log_n) + seg;
+      v = fe_load_vec(src + (row << 4));
+    } else {
+      v = fe_load(src, n, 1, j);
+    }
     sm_store(sm, E, l, v);
   }
   for (int i = t; i < E - 1; i += H) sm_store(smt, TW, i, fe_load(tw, tw_ls, 1, i));
@@ -174,19 +190,20 @@ __global__ void ntt_stage_kernel(int32_t* __restrict__ x, int64_t n,
   }
 }
 
-// every stage with half < 2^log_tile on each tile of 2^log_tile elements,
-// a tile on a cluster of 2^log_cluster CTAs; gather: src is the (n, 16) AoS
-// input (16-byte aligned) and dst new (16, n) planes, else src = dst planes
-extern "C" int zk_ntt_local(const void* src, void* dst, long long n, const void* tw,
+// every stage with half < 2^log_tile on each tile of 2^log_tile elements of
+// the n / 2^log_n transforms of 2^log_n in a plane of width n, a tile on a
+// cluster of 2^log_cluster CTAs; gather: src is the (2^log_n, n / 2^log_n,
+// 16) AoS input (16-byte aligned) and dst new (16, n) planes, else src = dst
+// planes
+extern "C" int zk_ntt_local(const void* src, void* dst, long long n, int log_n, const void* tw,
                             long long tw_ls, int log_tile, int log_cluster, int gather,
                             void* stream) {
-  if (n < 2 || (n & (n - 1)) || log_tile < 1 || ((long long)1 << log_tile) > n ||
+  if (log_n < 1 || log_n > 31 || n < ((long long)1 << log_n) ||
+      (n & (((long long)1 << log_n) - 1)) || log_tile < 1 || log_tile > log_n ||
       log_cluster < 0 || log_cluster > 3 || log_cluster >= log_tile ||
       log_tile - log_cluster > 10) {
     return (int)cudaErrorInvalidValue;
   }
-  int log_n = 0;
-  while (((long long)1 << log_n) < n) log_n++;
   const int le = log_tile - log_cluster, E = 1 << le;
   const size_t smem = (size_t)(E + (E - 1) + log_cluster * (E / 2)) * 8 * sizeof(uint32_t);
   void (*kernel)(const int32_t*, int32_t*, int64_t, int, const int32_t*, int64_t, int, int) =
@@ -217,13 +234,15 @@ extern "C" int zk_ntt_local(const void* src, void* dst, long long n, const void*
 
 #define NTT_PASS_SHARED_MAX (64 * 1024)
 
-// one pass: stages s0 .. s0 + stages - 1 (all with half >= 2^log_tile) on
-// CTAs of 2^log_c columns x 2^stages rows
-extern "C" int zk_ntt_stage(void* x, long long n, const void* tw, long long tw_ls,
+// one pass: stages s0 .. s0 + stages - 1 (all with half >= 2^log_tile) of
+// the n / 2^log_n transforms of 2^log_n in a plane of width n, on CTAs of
+// 2^log_c columns x 2^stages rows
+extern "C" int zk_ntt_stage(void* x, long long n, int log_n, const void* tw, long long tw_ls,
                             int log_tile, int s0, int stages, int log_c, void* stream) {
   const long long elems = (long long)1 << (stages + log_c);
-  if (stages < 1 || log_c < 0 || log_c > log_tile || s0 < log_tile ||
-      ((long long)1 << (s0 + stages)) > n || elems * 32 > NTT_PASS_SHARED_MAX) {
+  if (stages < 1 || log_c < 0 || log_c > log_tile || s0 < log_tile || log_n > 31 ||
+      s0 + stages > log_n || n < ((long long)1 << log_n) ||
+      (n & (((long long)1 << log_n) - 1)) || elems * 32 > NTT_PASS_SHARED_MAX) {
     return (int)cudaErrorInvalidValue;
   }
   const size_t smem = (size_t)elems * 8 * sizeof(uint32_t);

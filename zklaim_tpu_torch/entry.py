@@ -19,7 +19,13 @@ request must fail: a predicate the attributes do not satisfy makes
 `prove` raise ValueError, and a proof checked against a wrong public
 input does not verify.  All randomness comes from random.Random(seed).
 
-Both run on the card unless the caller passes a device (the tests pass
+run_multichip(mesh, device, ...) is the counterpart of the JAX package's
+dryrun_multichip (__graft_entry__.py): the sharded MSM over a 1-D mesh and
+over the 2-D (host, chip) mesh, a four-step NTT round trip, and a batched
+prove over the mesh whose proofs must verify, each checked, at sizes the
+caller picks (default: the dryrun's tiny shapes).
+
+All run on the card unless the caller passes a device (the tests pass
 "cpu").
 """
 
@@ -29,14 +35,25 @@ import hashlib
 import random
 import time
 
+import numpy as np
+import torch
+
 from . import kernels as K
 from . import resolve_device
 from .claims.circuit import (
     OP_EQ, OP_GREATER, OP_GREATER_EQ, OP_LESS, OP_LESS_EQ, OP_NOOP, OP_NOT_EQ,
     ZKlaimCircuit, public_inputs_for,
 )
+from .ec import curve as C
+from .ec.hostcurve import g1_generator
+from .ff import montgomery as M
+from .ff.params import R
 from .gadgets.compare import comparison
 from .groth16.api import prove, setup, verify
+from .parallel.mesh import make_host_mesh, make_mesh
+from .parallel.msm import sharded_msm
+from .parallel.ntt import ShardedNTT
+from .parallel.prove import batched_prove
 from .r1cs.system import ONE, ConstraintSystem
 from .utils.profiling import sync as _sync
 
@@ -351,3 +368,99 @@ def run_credential_path(device=None, num_payloads: int = 1, requests: int = 3,
     out["statuses_ok"] = status == expect
     return out
 
+
+
+def multiple_rows(n: int, device):
+    """(rows, k): n G1 points (i mod 2^14 + 1) G as packed rows, built on the
+    host by repeated addition and tiled past 2^14, and their multipliers k
+    (min(n, 2^14) ints) -- the points of bench.make_points, whose sums the
+    host checks cheaply: sum_i s_i P_i = (sum_i s_i k_(i mod 2^14)) G."""
+    g = g1_generator()
+    pts, p = [], g
+    for _ in range(min(n, 1 << 14)):
+        pts.append(p)
+        p = p + g
+    f = C.ops_for(1)
+    rows = C.planes_to_rows(C.point_to_planes(f, C.host_points_to_proj(f, pts, device)))
+    reps = -(-n // len(pts))
+    return rows.repeat(reps, 1)[:n].contiguous(), list(range(1, len(pts) + 1))
+
+
+def multiple_rows_sum(k: list, scalars: torch.Tensor):
+    """The host's sum_i s_i P_i over the points of multiple_rows with
+    multipliers k: (sum_i s_i k_(i mod len k)) G, a host point."""
+    raw = scalars.cpu().numpy().astype("<u2").tobytes()
+    coeff = sum(int.from_bytes(raw[32 * i : 32 * i + 32], "little") * k[i % len(k)]
+                for i in range(scalars.shape[0]))
+    return g1_generator() * (coeff % R)
+
+
+def random_scalars(n: int, rng: np.random.Generator, device) -> torch.Tensor:
+    """(n, 16) plain Fr limbs below r, drawn in bulk from a numpy Generator."""
+    v = rng.integers(0, 1 << 16, size=(n, 16))
+    v[:, 15] = rng.integers(0, 0x3064, size=n)          # r's top limb is 0x3064
+    return torch.from_numpy(v.astype(np.int32)).to(device)
+
+
+def run_multichip(mesh=None, device=None, n_points: int | None = None, ntt_n: int | None = None,
+                  circuit=None, msm_c: int = 4, seed: int = 20260817) -> dict:
+    """One multi-device step at the given sizes, each part checked:
+
+      - sharded_msm of n_points G1 points (default max(16, 4 S)) over the
+        1-D mesh and over the 2-D (host, chip) mesh: both equal the host's
+        sum (the points are multiples of G, multiple_rows), not infinity;
+      - ShardedNTT of ntt_n (default max(64, S^2)): intt_t(ntt_t(x)) = x;
+      - batched_prove over the mesh of S copies of the circuit's witness --
+        circuit: (cs, witness) or (cs, witness, public inputs), default the
+        tiny credential-shaped circuit -- each proof verified on the host.
+
+    mesh: the 1-D mesh (default: make_mesh() on `device`).  Returns the
+    results and each part's seconds (host clock, after a synchronise).
+    Raises AssertionError if a check fails."""
+    if mesh is None:
+        mesh = make_mesh(device=resolve_device(device))
+    device = mesh.device
+    shards = mesh.size
+    rng = random.Random(seed)
+    nrng = np.random.default_rng(seed)
+    out = {"shards": shards, "seconds": {}}
+
+    def timed(name, fn):
+        _sync(device)
+        t0 = time.perf_counter()
+        res = fn()
+        _sync(device)
+        out["seconds"][name] = time.perf_counter() - t0
+        return res
+
+    n = n_points or max(16, 4 * shards)
+    rows, k = multiple_rows(n, device)
+    scalars = random_scalars(n, nrng, device)
+    want = multiple_rows_sum(k, scalars)
+    hmesh = make_host_mesh(device=device)
+    flat = timed("sharded_msm_1d", lambda: sharded_msm(mesh, 1, rows, scalars, msm_c))
+    grid = timed("sharded_msm_2d", lambda: sharded_msm(hmesh, 1, rows, scalars, msm_c,
+                                                        axis=("host", "chip")))
+    out["msm_1d"], out["msm_2d"] = (C.planes_to_host_points(1, p)[0] for p in (flat, grid))
+    out["host_mesh"] = hmesh.devices.shape
+    if out["msm_1d"] != want or out["msm_2d"] != want or want.inf:
+        raise AssertionError("sharded MSM differs from the host's sum")
+
+    m = ntt_n or max(64, shards * shards)
+    x = M.to_mont(M.FR, random_scalars(m, nrng, device))
+    plan = timed("sharded_ntt_plan", lambda: ShardedNTT(mesh, m))
+    z = timed("sharded_ntt_t", lambda: plan.ntt_t(plan.to_matrix(x)))
+    back = timed("sharded_intt_t", lambda: plan.intt_t(z))
+    if not bool((back.reshape(m, 16) == x).all()):
+        raise AssertionError("intt_t(ntt_t(x)) != x")
+
+    cs, witness, *primary = circuit if circuit is not None else tiny_circuit()
+    primary = primary[0] if primary else list(witness[1 : cs.num_primary + 1])
+    pk, vk, qap = timed("setup", lambda: setup(cs, rng, device))
+    proofs = timed("batched_prove", lambda: batched_prove(
+        mesh, pk, qap, [witness] * shards, rng, msm_c=msm_c))
+    out["verified"] = [verify(vk, primary, p) for p in proofs]
+    if not out["verified"] or not all(out["verified"]):
+        raise AssertionError(f"a proof of batched_prove did not verify: {out['verified']}")
+    out["proofs"] = proofs
+    return out

@@ -161,14 +161,31 @@ def h_plain(qap: QAP, w_plain: torch.Tensor, witness=None,
     given, is called at the end of each step: the witness map, the
     satisfaction check, QAP.h_coefficients' steps, from_mont."""
     mark = mark or (lambda name: None)
-    w_mont = M.to_mont(FR, w_plain)
-    evals = qap.constraint_evals(w_mont)
+    evals = witness_evals(qap, w_plain)
     mark("witness map (to_mont + constraint_evals)")
-    a_ev, b_ev, c_ev = evals
-    if bool((M.mont_mul(FR, a_ev, b_ev) != c_ev).any()):
+    if not bool(satisfied(evals)):
         where = qap.cs.first_unsatisfied(witness) if qap.cs is not None else None
         raise ValueError(f"{what}: {where}")
     mark("satisfaction check")
+    return h_from_evals(qap, evals, mark)
+
+
+def witness_evals(qap: QAP, w_plain: torch.Tensor):
+    """The witness map: plain witness limbs -> the constraint evaluations
+    (<A_j,w>, <B_j,w>, <C_j,w>) in Montgomery form."""
+    return qap.constraint_evals(M.to_mont(FR, w_plain))
+
+
+def satisfied(evals) -> torch.Tensor:
+    """A 0-dim bool tensor on the evaluations' device: every row has
+    mont_mul(<A_j,w>, <B_j,w>) == <C_j,w>."""
+    a_ev, b_ev, c_ev = evals
+    return (M.mont_mul(FR, a_ev, b_ev) == c_ev).all()
+
+
+def h_from_evals(qap: QAP, evals, mark=None) -> torch.Tensor:
+    """The constraint evaluations -> plain H coefficients (m - 1, 16)."""
+    mark = mark or (lambda name: None)
     h = qap.h_coefficients(evals, mark)
     h = M.from_mont(FR, h)[: qap.m - 1]
     mark("from_mont")

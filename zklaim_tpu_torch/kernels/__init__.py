@@ -51,8 +51,8 @@ _I = ctypes.c_int
 KERNELS = {
     "mont_mul": ("zk_mont_mul", [_P, _I64, _I64, _P, _I64, _I64, _P, _I64, _I64, _I64, _I]),
     "mont_pow": ("zk_mont_pow", [_P, _P, _I64, _P, _I, _I]),
-    "ntt_local": ("zk_ntt_local", [_P, _P, _I64, _P, _I64, _I, _I, _I]),
-    "ntt_stage": ("zk_ntt_stage", [_P, _I64, _P, _I64, _I, _I, _I, _I]),
+    "ntt_local": ("zk_ntt_local", [_P, _P, _I64, _I, _P, _I64, _I, _I, _I]),
+    "ntt_stage": ("zk_ntt_stage", [_P, _I64, _I, _P, _I64, _I, _I, _I, _I]),
     "point_add": ("zk_point_add", [_I, _P, _I64, _I64, _P, _I64, _I64, _P, _I64, _I64, _I64]),
     "point_double": ("zk_point_double", [_I, _P, _I64, _I64, _P, _I64, _I64, _I64]),
     "msm_tails": ("zk_msm_tails", [_I, _P, _I, _P, _I64, _P, _I64, _I64, _P, _I, _I, _I]),

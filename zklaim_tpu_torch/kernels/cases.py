@@ -161,7 +161,8 @@ def kernel_cases(device, n_field: int = 1 << 15, n_ntt: int = 1 << 15, n_ntt_big
     """The kernels of the proving paths at the given widths (defaults: the
     main path's; K1 also on an unaligned operand; K2 also through its
     gather entry; K2 and K3 also at the bench's largest transform,
-    n_ntt_big, K3 there in two passes; the doubling also at 4 G1
+    n_ntt_big, K3 there in two passes, and on the four-step NTT's batches
+    (batched_ntt_cases); the doubling also at 4 G1
     lanes and 1 G2 lane, where a launch is all host), msm_tails at the
     credential path's shapes (tails_cases), mont_pow and msm_finish at
     theirs (loop_cases), then the four probes (probe_cases)."""
@@ -216,6 +217,8 @@ def kernel_cases(device, n_field: int = 1 << 15, n_ntt: int = 1 << 15, n_ntt_big
                                   2 * n + (1 << dom.k) - (1 << lt), (dom.k - lt) * n // 2,
                                   plain_once=once))
 
+    cases += batched_ntt_cases(device, rng)
+
     for deg, n in ((1, n_g1), (2, n_g2)):
         p, q = curve_inputs(deg, n, rng, device)
         cases.append(Case("point_add", f"K4 point_add G{deg} n={n}",
@@ -236,6 +239,40 @@ def kernel_cases(device, n_field: int = 1 << 15, n_ntt: int = 1 << 15, n_ntt_big
                           6 * deg * n, DOUBLE_PRODUCTS[deg] * n))
     return (cases + tails_cases(device, rng) + loop_cases(device, rng, n_field)
             + probe_cases(device, rng))
+
+
+def batched_ntt_cases(device, rng: np.random.Generator,
+                      shapes=((256, 128), (128, 256), (2048, 2048))) -> list:
+    """K2 and K3 on a batch of B transforms of n in one launch (one a K3
+    pass), at the four-step NTT's (n, B): at 2^15 the 128 column transforms
+    of 256 and the 256 row transforms of 128 (K2 alone), at 2^22 2,048 of
+    2,048 (K2 and one K3 pass).  K2 through its rows entry on the (n, B, 16)
+    input, as NTTDomain.ntt calls it; K3 in place on a copy of planes.  Work
+    as for one transform, B times; the twiddles are read once."""
+    cases = []
+    for n, batch in shapes:
+        dom = get_domain(n, str(device))
+        lt = min(gpu_ntt.TILE, n).bit_length() - 1
+        planes = _fr_planes(batch * n, rng, device)
+        rows = planes.view(16, batch, n).permute(2, 1, 0).contiguous()       # (n, B, 16)
+        once = batch * n > 1 << 20
+        tw = dom.tw_flat
+        cases.append(Case("ntt_local", f"K2 ntt_local_rows batched, {batch} transforms of {n}",
+                          lambda r=rows, tw=tw: gpu_ntt.ntt_local_rows(r, tw),
+                          lambda r=rows, tw=tw, lt=lt, n=n: gpu_ntt.ntt_plain(
+                              r.index_select(0, gpu_ntt.bitrev_rows(n, r.device))
+                              .permute(2, 1, 0).reshape(16, -1).contiguous(), tw, range(lt)),
+                          2 * batch * n + (1 << lt) - 1, lt * batch * n // 2, plain_once=once))
+        if dom.k > lt:
+            passes = len(gpu_ntt.global_passes(n, batch=batch))
+            cases.append(Case("ntt_stage", f"K3 ntt_stage batched, {batch} transforms of {n} "
+                                           f"({passes} pass)",
+                              lambda x=planes, tw=tw, n=n: gpu_ntt.ntt_global(x.clone(), tw, n=n),
+                              lambda x=planes, tw=tw, lt=lt, k=dom.k: gpu_ntt.ntt_plain(
+                                  x, tw, range(lt, k)),
+                              2 * batch * n + (1 << dom.k) - (1 << lt),
+                              (dom.k - lt) * batch * n // 2, plain_once=once))
+    return cases
 
 
 def _fr_planes(n: int, rng: np.random.Generator, device) -> torch.Tensor:

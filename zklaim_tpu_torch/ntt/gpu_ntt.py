@@ -16,6 +16,13 @@ transform, on planes already in bit-reversed order, are two steps:
 reads the (n, 16) AoS input in bit-reversed row order (`bitrev_rows`) and
 writes new planes, in the same launch as the local stages.
 
+A batch of B transforms of n is one plane of width B n, transform b in
+segment b: no stage pairs elements of two segments, so every function here
+takes the transform size `n` apart from the plane's width (default: one
+transform) and runs the batch in the launches of one transform -- one K2,
+one K3 a pass.  The rows entry then reads a (n, B, 16) input, element j of
+transform b at row bitrev(j) B + b.
+
 Twiddles come as one flat (16, n - 1) plane, stage s at offset 2^s - 1
 (see NTTDomain.tw_flat).  On a CUDA tensor the wrappers launch the
 kernels; on a CPU tensor `ntt_local` runs `ntt_plain`, the plain version,
@@ -51,7 +58,9 @@ def ntt_plain(x: torch.Tensor, tw_flat: torch.Tensor, stages: range) -> torch.Te
     """Plain version of K2/K3: butterfly stages `stages` on (16, n) planes.
 
     Stage s pairs j with j + 2^s (j mod 2^(s+1) < 2^s): t = tw[r] x[j+2^s],
-    x[j] += t, x[j+2^s] = x[j] - t, r = j mod 2^s.  Returns new planes."""
+    x[j] += t, x[j+2^s] = x[j] - t, r = j mod 2^s.  Returns new planes.  A
+    stage below log2 m never pairs across a segment of m, so the same call
+    runs the stages of B transforms of m in (16, B m) planes."""
     n = x.shape[1]
     a = x.t().contiguous()
     tw = tw_flat.t()
@@ -64,11 +73,15 @@ def ntt_plain(x: torch.Tensor, tw_flat: torch.Tensor, stages: range) -> torch.Te
     return a.t().contiguous()
 
 
-def _check(x: torch.Tensor, tw_flat: torch.Tensor) -> torch.device:
+def _check(x: torch.Tensor, tw_flat: torch.Tensor, n: int) -> torch.device:
+    """The launch's device; raises unless x is contiguous (16, B n) planes of
+    transforms of n = 2^k >= 2 and tw_flat n's (16, n - 1) twiddles."""
     dev = K.launch_device("ntt", x, tw_flat)
-    n = x.shape[1]
-    if x.shape[0] != 16 or not x.is_contiguous() or n & (n - 1) or n < 2:
-        raise ValueError(f"ntt: expected contiguous (16, 2^k) planes, got {tuple(x.shape)}")
+    width = x.shape[1]
+    if (x.shape[0] != 16 or not x.is_contiguous() or n & (n - 1) or n < 2 or width % n
+            or width == 0):
+        raise ValueError(f"ntt: expected contiguous (16, B 2^k) planes of transforms of {n}, "
+                         f"got {tuple(x.shape)}")
     if tw_flat.shape != (16, n - 1) or (n > 2 and tw_flat.stride(1) != 1):
         raise ValueError(f"ntt: twiddle plane must be (16, {n - 1}) with unit element stride, "
                          f"got {tuple(tw_flat.shape)} strides {tw_flat.stride()}")
@@ -89,12 +102,12 @@ def local_split(n: int, tile: int = TILE, cluster: int = CLUSTER) -> tuple:
     return lt, lc, lt - lc
 
 
-def local_launch(n: int, tile: int = TILE, cluster: int = CLUSTER) -> dict:
-    """The launch K2 makes for a transform of n: cluster size, CTAs, threads
-    a CTA and dynamic shared memory a CTA (csrc/ntt.cu:zk_ntt_local)."""
+def local_launch(n: int, tile: int = TILE, cluster: int = CLUSTER, batch: int = 1) -> dict:
+    """The launch K2 makes for `batch` transforms of n: cluster size, CTAs,
+    threads a CTA and dynamic shared memory a CTA (csrc/ntt.cu:zk_ntt_local)."""
     lt, lc, le = local_split(n, tile, cluster)
     e = 1 << le
-    return {"cluster": 1 << lc, "ctas": n >> le, "threads": e // 2,
+    return {"cluster": 1 << lc, "ctas": batch * n >> le, "threads": e // 2,
             "shared_bytes": (e + (e - 1) + lc * (e // 2)) * 8 * 4}
 
 
@@ -110,25 +123,38 @@ def bitrev_rows(n: int, device) -> torch.Tensor:
 
 
 def ntt_local_cluster_plain(x: torch.Tensor, tw_flat: torch.Tensor, tile: int = TILE,
-                            cluster: int = CLUSTER, rows: bool = False) -> torch.Tensor:
-    """Plain version of K2 that walks the kernel's split (local_split): every
-    CTA (rank = its index mod the cluster size) loads its elements -- rows
-    `bitrev_rows` of (n, 16) AoS input where `rows`, else columns of (16, n)
-    planes -- and stages its twiddles at the kernel's offsets; runs the
-    stages within a CTA with the kernel's pair and twiddle indices, then the
-    stages that pair CTAs r and r ^ 2^c, each thread's pair and twiddle as
-    the kernel computes them.  Returns new (16, n) planes."""
-    n = x.shape[0] if rows else x.shape[1]
+                            cluster: int = CLUSTER, rows: bool = False,
+                            n: int | None = None) -> torch.Tensor:
+    """Plain version of K2 that walks the kernel's split (local_split) over
+    B transforms of n: every CTA (rank = its index mod the cluster size)
+    loads its elements -- where `rows`, element j of transform b is row
+    bitrev(j) B + b of the (n, B, 16) or (n, 16) AoS input, else column
+    b n + j of (16, B n) planes -- and stages its twiddles at the kernel's
+    offsets; runs the stages within a CTA with the kernel's pair and twiddle
+    indices, then the stages that pair CTAs r and r ^ 2^c, each thread's
+    pair and twiddle as the kernel computes them.  Returns new (16, B n)
+    planes.  n: the transform size (default: x's first axis where `rows`,
+    else the plane's width)."""
+    if rows:
+        n = x.shape[0]
+        width = x.numel() // 16
+    else:
+        width = x.shape[1]
+        n = n or width
     lt, lc, le = local_split(n, tile, cluster)
     e, h = 1 << le, 1 << (le - 1)
     dev = x.device
-    blk = torch.arange(n >> le, device=dev)[:, None]
+    blk = torch.arange(width >> le, device=dev)[:, None]
     rank = blk & ((1 << lc) - 1)
     j = (blk << le) + torch.arange(e, device=dev)[None, :]               # (CTAs, E)
-    sm = x[bitrev_rows(n, dev)[j]] if rows else x.t()[j]                 # (CTAs, E, 16)
+    if rows:
+        row = bitrev_rows(n, dev)[j % n] * (width // n) + j // n
+        sm = x.reshape(width, 16)[row]                                   # (CTAs, E, 16)
+    else:
+        sm = x.t()[j]
     tw = tw_flat.t()
     t = torch.arange(h, device=dev)
-    cross_l, staged = [], [tw[: e - 1].expand(n >> le, e - 1, 16)]
+    cross_l, staged = [], [tw[: e - 1].expand(width >> le, e - 1, 16)]
     for c in range(lc):
         lo = rank & ~(1 << c)
         cross_l.append((((rank >> c) & 1) << (le - 1)) | t[None, :])     # (CTAs, H)
@@ -149,58 +175,61 @@ def ntt_local_cluster_plain(x: torch.Tensor, tw_flat: torch.Tensor, tile: int = 
         tb = M.mont_mul_plain(FR, sm[hi_blk, cross_l[c]], smt[:, e - 1 + c * h + t])
         a = sm[lo_blk, cross_l[c]]
         sm[lo_blk, cross_l[c]], sm[hi_blk, cross_l[c]] = M.add_mod(FR, a, tb), M.sub_mod(FR, a, tb)
-    out = torch.empty((n, 16), dtype=x.dtype, device=dev)
+    out = torch.empty((width, 16), dtype=x.dtype, device=dev)
     out[j] = sm
     return out.t().contiguous()
 
 
 def ntt_local(x: torch.Tensor, tw_flat: torch.Tensor, tile: int = TILE,
-              cluster: int = CLUSTER) -> torch.Tensor:
-    """The stages with pair distance below `tile` on (16, n) planes in
-    bit-reversed order: K2 in place on CUDA."""
-    n = x.shape[1]
+              cluster: int = CLUSTER, n: int | None = None) -> torch.Tensor:
+    """The stages with pair distance below `tile` on (16, B n) planes of B
+    transforms of n (default: one) in bit-reversed order: one K2 launch in
+    place on CUDA."""
+    n = n or x.shape[1]
     if not x.is_cuda:
         return ntt_plain(x, tw_flat, range(_log_tile(n, tile)))
-    dev = _check(x, tw_flat)
+    dev = _check(x, tw_flat, n)
     lt, lc, _ = local_split(n, tile, cluster)
-    K.launch("ntt_local", x.data_ptr(), x.data_ptr(), n, tw_flat.data_ptr(), tw_flat.stride(0),
-             lt, lc, 0, device=dev)
+    K.launch("ntt_local", x.data_ptr(), x.data_ptr(), x.shape[1], n.bit_length() - 1,
+             tw_flat.data_ptr(), tw_flat.stride(0), lt, lc, 0, device=dev)
     return x
 
 
 def ntt_local_rows(x: torch.Tensor, tw_flat: torch.Tensor, tile: int = TILE,
                    cluster: int = CLUSTER, bitrev: torch.Tensor | None = None) -> torch.Tensor:
-    """A transform's first step: (n, 16) AoS rows in natural order -> new
-    (16, n) planes after the bit reversal and the stages with pair distance
+    """The first step of B transforms of n: (n, B, 16) AoS rows in natural
+    order -- or (n, 16), one transform -- to new (16, B n) planes, transform
+    b in segment b, after the bit reversal and the stages with pair distance
     below `tile`.  CUDA: one K2 launch that gathers the rows itself; CPU:
     the bit-reversal index_select (through `bitrev`, the domain's table,
     where given), the transpose and ntt_plain."""
     n = x.shape[0]
-    if x.dim() != 2 or x.shape[1] != 16 or n & (n - 1) or n < 2:
-        raise ValueError(f"ntt: expected (2^k, 16) rows, got {tuple(x.shape)}")
+    if x.dim() not in (2, 3) or x.shape[-1] != 16 or n & (n - 1) or n < 2 or not x.numel():
+        raise ValueError(f"ntt: expected (2^k, B, 16) or (2^k, 16) rows, got {tuple(x.shape)}")
+    width = x.numel() // 16
     if not x.is_cuda:
         rev = bitrev_rows(n, x.device) if bitrev is None else bitrev
-        planes = x.index_select(0, rev).t().contiguous()
+        planes = x.index_select(0, rev).reshape(n, -1, 16).permute(2, 1, 0).reshape(16, width)
         return ntt_plain(planes, tw_flat, range(_log_tile(n, tile)))
     dev = K.launch_device("ntt", x, tw_flat)
     x = x.contiguous()
     if x.data_ptr() % 16:
         raise ValueError("ntt: K2 reads 16-byte aligned rows")
-    out = torch.empty((16, n), dtype=torch.int32, device=dev)
-    _check(out, tw_flat)
+    out = torch.empty((16, width), dtype=torch.int32, device=dev)
+    _check(out, tw_flat, n)
     lt, lc, _ = local_split(n, tile, cluster)
-    K.launch("ntt_local", x.data_ptr(), out.data_ptr(), n, tw_flat.data_ptr(), tw_flat.stride(0),
-             lt, lc, 1, device=dev)
+    K.launch("ntt_local", x.data_ptr(), out.data_ptr(), width, n.bit_length() - 1,
+             tw_flat.data_ptr(), tw_flat.stride(0), lt, lc, 1, device=dev)
     return out
 
 
-def global_passes(n: int, tile: int = TILE) -> list:
-    """The K3 launches of a transform of n: (s0, G, C) each, stages s0 ..
-    s0 + G - 1 on CTAs of C columns.  The stages with half >= tile are cut
-    into the fewest passes of at most MAX_PASS_STAGES, as even as they go
+def global_passes(n: int, tile: int = TILE, batch: int = 1) -> list:
+    """The K3 launches of `batch` transforms of n: (s0, G, C) each, stages
+    s0 .. s0 + G - 1 on CTAs of C columns.  The stages with half >= tile are
+    cut into the fewest passes of at most MAX_PASS_STAGES, as even as they go
     (larger first); C is the widest power of two up to PASS_COLUMNS with
-    2^G C <= PASS_ELEMENTS that still gives MIN_CTAS CTAs (n / (2^G C)),
-    else 1."""
+    2^G C <= PASS_ELEMENTS that still gives MIN_CTAS CTAs (batch n / (2^G
+    C)), else 1."""
     lt = _log_tile(n, tile)
     stages = n.bit_length() - 1 - lt
     if stages <= 0:
@@ -210,7 +239,7 @@ def global_passes(n: int, tile: int = TILE) -> list:
     passes, s0 = [], lt
     for g in sizes:
         c = min(PASS_COLUMNS, 1 << lt, PASS_ELEMENTS >> g)
-        while c > 1 and n // (c << g) < MIN_CTAS:
+        while c > 1 and batch * n // (c << g) < MIN_CTAS:
             c //= 2
         passes.append((s0, g, c))
         s0 += g
@@ -218,20 +247,22 @@ def global_passes(n: int, tile: int = TILE) -> list:
 
 
 def ntt_global_columns_plain(x: torch.Tensor, tw_flat: torch.Tensor, tile: int = TILE,
-                             passes: list | None = None) -> torch.Tensor:
-    """Plain version of K3 that walks the kernel's split: for each pass
-    (s0, G, C) -- by default global_passes' -- every CTA gathers its C
-    columns x 2^G rows with the kernel's index formulas, runs the G stages on
-    them with the kernel's pair and twiddle indices, and scatters them back.
-    Returns new planes."""
-    n = x.shape[1]
+                             passes: list | None = None, n: int | None = None) -> torch.Tensor:
+    """Plain version of K3 that walks the kernel's split over the (16, B n)
+    planes of B transforms of n (default: one): for each pass (s0, G, C) --
+    by default global_passes' -- every CTA gathers its C columns x 2^G rows
+    with the kernel's index formulas, runs the G stages on them with the
+    kernel's pair and twiddle indices, and scatters them back.  Returns new
+    planes."""
+    width = x.shape[1]
+    n = n or width
     lt = _log_tile(n, tile)
     a = x.t().contiguous()
     tw = tw_flat.t()
     dev = x.device
-    for s0, g, c in global_passes(n, tile) if passes is None else passes:
+    for s0, g, c in global_passes(n, tile, width // n) if passes is None else passes:
         lc, b0, elems = c.bit_length() - 1, s0 - lt, c << g
-        blk = torch.arange(n // elems, device=dev)[:, None]
+        blk = torch.arange(width // elems, device=dev)[:, None]
         c0 = (blk & ((1 << (lt - lc)) - 1)) << lc                    # first column of the CTA
         rest = blk >> (lt - lc)
         lo, hi = rest & ((1 << b0) - 1), rest >> b0
@@ -252,16 +283,19 @@ def ntt_global_columns_plain(x: torch.Tensor, tw_flat: torch.Tensor, tile: int =
     return a.t().contiguous()
 
 
-def ntt_global(x: torch.Tensor, tw_flat: torch.Tensor, tile: int = TILE) -> torch.Tensor:
-    """The stages with pair distance >= `tile`: one K3 a pass, in place on
-    CUDA."""
+def ntt_global(x: torch.Tensor, tw_flat: torch.Tensor, tile: int = TILE,
+               n: int | None = None) -> torch.Tensor:
+    """The stages with pair distance >= `tile` of the B transforms of n
+    (default: one) in (16, B n) planes: one K3 a pass over the whole batch,
+    in place on CUDA."""
+    width = x.shape[1]
+    n = n or width
     if not x.is_cuda:
-        return ntt_global_columns_plain(x, tw_flat, tile)
-    dev = _check(x, tw_flat)
-    n = x.shape[1]
+        return ntt_global_columns_plain(x, tw_flat, tile, n=n)
+    dev = _check(x, tw_flat, n)
     lt = _log_tile(n, tile)
-    for s0, g, c in global_passes(n, tile):
-        K.launch("ntt_stage", x.data_ptr(), n, tw_flat.data_ptr(), tw_flat.stride(0), lt, s0, g,
-                 c.bit_length() - 1, device=dev)
+    for s0, g, c in global_passes(n, tile, width // n):
+        K.launch("ntt_stage", x.data_ptr(), width, n.bit_length() - 1, tw_flat.data_ptr(),
+                 tw_flat.stride(0), lt, s0, g, c.bit_length() - 1, device=dev)
     return x
 

@@ -2,11 +2,14 @@
 
 Counterpart of zklaim_tpu/ntt/radix2.py with the same host tables
 (omega, bit reversal, per-stage twiddles, coset powers, n^{-1},
-Z_H(g)^{-1}).  A transform takes AoS (n, 16) Montgomery limbs: a bit-
-reversal index_select and one transpose to (16, n) SoA planes (on CUDA
-both inside K2's load: gpu_ntt.ntt_local_rows), the butterfly stages of
-gpu_ntt (K2 + K3 on CUDA), one transpose back.  The n^{-1} scale and the
-coset shifts are mont_mul calls (K1 on CUDA).
+Z_H(g)^{-1}).  A transform takes AoS (n, ..., 16) Montgomery limbs and
+acts along axis 0, as the JAX package's does: the B = prod(...) transforms
+go through a bit-reversal index_select and one transpose to (16, B n) SoA
+planes, transform b in segment b (on CUDA both inside K2's load:
+gpu_ntt.ntt_local_rows), the butterfly stages of gpu_ntt (on CUDA one K2
+launch and one K3 launch a pass for the whole batch), one transpose back.
+The n^{-1} scale and the coset shifts are mont_mul calls (K1 on CUDA),
+their tables broadcast over the batch axes.
 
 The four tables of n powers (twiddles, inverse twiddles, coset powers and
 their inverses) are built on the domain's device (`_device_powers`: log2(n)
@@ -85,15 +88,23 @@ class NTTDomain:
         self.z_coset_inv_mont = to_tensor(_mont([pow(zg, R - 2, R)])[0], self.device)
 
     def _transform(self, x: torch.Tensor, tw_flat: torch.Tensor) -> torch.Tensor:
-        if x.shape != (self.n, 16):
-            raise ValueError(f"expected ({self.n}, 16) limbs, got {tuple(x.shape)}")
-        if self.n == 1:
+        if x.dim() < 2 or x.shape[0] != self.n or x.shape[-1] != 16:
+            raise ValueError(f"expected ({self.n}, ..., 16) limbs, got {tuple(x.shape)}")
+        if self.n == 1 or not x.numel():
             return x.clone()
-        planes = gpu_ntt.ntt_local_rows(x, tw_flat, bitrev=self.bitrev)
-        return gpu_ntt.ntt_global(planes, tw_flat).t().contiguous()
+        batch = x.numel() // (16 * self.n)
+        planes = gpu_ntt.ntt_local_rows(x.reshape(self.n, batch, 16), tw_flat,
+                                        bitrev=self.bitrev)
+        planes = gpu_ntt.ntt_global(planes, tw_flat, n=self.n)
+        return planes.view(16, batch, self.n).permute(2, 1, 0).contiguous().view(x.shape)
+
+    def _bshape(self, x: torch.Tensor) -> tuple:
+        """A table of n rows, broadcast over x's batch axes."""
+        return (self.n,) + (1,) * (x.dim() - 2) + (16,)
 
     def ntt(self, x: torch.Tensor) -> torch.Tensor:
-        """Coefficients -> evaluations on <omega>.  x: (n, 16) mont."""
+        """Coefficients -> evaluations on <omega>.  x: (n, ..., 16) mont,
+        transformed along axis 0."""
         return self._transform(x, self.tw_flat)
 
     def intt(self, y: torch.Tensor) -> torch.Tensor:
@@ -102,11 +113,11 @@ class NTTDomain:
 
     def coset_ntt(self, x: torch.Tensor) -> torch.Tensor:
         """Coefficients -> evaluations on g<omega>."""
-        return self.ntt(M.mont_mul(FR, x, self.shift_pows))
+        return self.ntt(M.mont_mul(FR, x, self.shift_pows.view(self._bshape(x))))
 
     def coset_intt(self, y: torch.Tensor) -> torch.Tensor:
         """Evaluations on g<omega> -> coefficients."""
-        return M.mont_mul(FR, self.intt(y), self.shift_pows_inv)
+        return M.mont_mul(FR, self.intt(y), self.shift_pows_inv.view(self._bshape(y)))
 
 
 @lru_cache(maxsize=None)

@@ -8,7 +8,9 @@
 2. Builds the kernels K1-K9 and the whole-loop entries mont_pow (K1),
    msm_tails (K4) and msm_finish (K5) from zklaim_tpu_torch/csrc with nvcc,
    the sources side by side, and prints what ptxas says of every kernel
-   (registers, stack, spill bytes), K2's two entries again on their own
+   (registers, stack, spill bytes) and one line a kernel with its
+   registers; a stack frame or a spill in any kernel fails the run.  K2's
+   two entries again on their own
    lines beside K2's cluster launch (cluster size, CTAs, threads, shared
    memory a CTA) at the credential path's 2^15 and the bench's 2^22.
 3. Probes phase: the four probes of the measuring path
@@ -89,6 +91,7 @@ from __future__ import annotations
 
 import json
 import random
+import re
 import subprocess
 import sys
 import time
@@ -159,16 +162,33 @@ def _require_not_launched(launches: dict, path: str, kernels) -> None:
         raise AssertionError(f"kernels that {path} must not launch: {ran}")
 
 
-def _ptxas_of(ptxas: str, kernel: str) -> dict:
-    """ptxas' registers, stack and spill lines of every entry whose mangled
-    name holds `kernel`, by entry."""
-    found, entry = {}, None
+def _ptxas_table(ptxas: str) -> dict:
+    """{entry: {"registers", "stack", "spill_stores", "spill_loads"}} of every
+    kernel ptxas compiled."""
+    table, entry = {}, None
     for line in ptxas.splitlines():
         if "Compiling entry function" in line:
             entry = line.split("'")[1] if "'" in line else line
-        elif entry and kernel in entry and ("Used" in line or "spill" in line):
-            found.setdefault(entry, []).append(line.split("ptxas info    :")[-1].strip())
-    return found
+            table[entry] = {}
+        elif entry is None:
+            continue
+        elif m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                            r"(\d+) bytes spill loads", line):
+            table[entry].update(stack=int(m[1]), spill_stores=int(m[2]), spill_loads=int(m[3]))
+        elif m := re.search(r"Used (\d+) registers", line):
+            table[entry]["registers"] = int(m[1])
+    return table
+
+
+def _kernel_name(entry: str) -> str:
+    """The name inside a mangled entry (_Z16mont_chain_kernel... ->
+    mont_chain_kernel), with the mangled one where there are template
+    arguments."""
+    m = re.match(r"_Z(\d+)", entry)
+    if not m:
+        return entry
+    name = entry[m.end() : m.end() + int(m[1])]
+    return f"{name} ({entry})" if entry[m.end() + int(m[1]) :].startswith("I") else name
 
 
 def _multi_device_phase(dev, card: str, credential) -> dict:
@@ -375,9 +395,19 @@ def main() -> None:
     for line in record["ptxas"].splitlines():
         if "Compiling entry" in line or "Used" in line or "spill" in line:
             print("  ptxas:", line.split("ptxas info    :")[-1].strip())
-    record["k2_ptxas"] = _ptxas_of(record["ptxas"], "ntt_local_kernel")
-    for entry, lines in record["k2_ptxas"].items():
-        print(f"[{card}] K2 {entry}: {'; '.join(lines)}")
+    record["ptxas_table"] = _ptxas_table(record["ptxas"])
+    for entry, info in record["ptxas_table"].items():
+        print(f"[{card}] ptxas {_kernel_name(entry)}: {info.get('registers')} registers, "
+              f"{info.get('stack')} bytes stack frame, {info.get('spill_stores')} / "
+              f"{info.get('spill_loads')} bytes spill stores / loads")
+    faults = {e: i for e, i in record["ptxas_table"].items()
+              if set(i) != {"registers", "stack", "spill_stores", "spill_loads"}
+              or i["stack"] or i["spill_stores"] or i["spill_loads"]}
+    if faults or not record["ptxas_table"]:
+        raise AssertionError(f"kernels with a stack frame or spills (or no ptxas line): {faults}")
+    record["k2_ptxas"] = {e: i for e, i in record["ptxas_table"].items() if "ntt_local_kernel" in e}
+    for entry, info in record["k2_ptxas"].items():
+        print(f"[{card}] K2 {entry}: {info['registers']} registers, {info['stack']} bytes stack frame")
     record["k2_launch"] = {n: gpu_ntt.local_launch(n) for n in (1 << 15, 1 << 22)}
     for n, cfg in record["k2_launch"].items():
         print(f"[{card}] K2 launch at n = 2^{n.bit_length() - 1}: clusters of {cfg['cluster']} CTAs, "

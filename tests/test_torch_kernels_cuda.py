@@ -428,21 +428,62 @@ def test_probe_wrappers_reject_bad_operands(cuda):
 
 def test_probes_scale_linearly_in_chain_length(cuda):
     """The compiler did not fold a probe's loop: the time of 4 K steps is
-    well above that of K steps (between 2 and 6 times it), for every op, and
-    no op runs above one instruction a lane a clock on every SM (132 SMs x
-    128 lanes x 2 GHz): merged steps would."""
-    from zklaim_tpu_torch.tools import mont_micro, pallas_op_micro
+    well above that of K steps (between 2 and 6 times it), for every op, for
+    K6, and for K9 at its original's 1,024 lanes in its CTAs of one warp;
+    and no op runs above one instruction a lane a clock on every SM (132 SMs
+    x 128 lanes x 2 GHz): merged steps would."""
+    from zklaim_tpu_torch.tools import mont_micro, padd_micro, pallas_op_micro
     from zklaim_tpu_torch.utils.profiling import best_ms
 
     x = mont_micro.probe_input(mont_micro.WIDE_LANES, cuda)
     t1, t4 = (best_ms(lambda k=k: mont_micro.mont_chain(x, k), cuda) for k in (256, 1024))
     assert 2 < t4 / t1 < 6, (t1, t4)
+    pt = padd_micro.probe_input(padd_micro.LANES, cuda)
+    assert padd_micro.chain_threads(pt.shape[2], torch.cuda.get_device_properties(cuda)
+                                    .multi_processor_count) == 32
+    t1, t4 = (best_ms(lambda k=k: padd_micro.point_add_chain(pt, k), cuda) for k in (32, 128))
+    assert 2 < t4 / t1 < 6, ("point_add_chain", t1, t4)
     for op in pallas_op_micro.OPS:
         v = pallas_op_micro.probe_input(op, pallas_op_micro.WIDE_COLS, cuda)
         t1, t4 = (best_ms(lambda k=k: pallas_op_micro.op_chain(op, v, k), cuda)
                   for k in (2000, 8000))
         assert 2 < t4 / t1 < 6, (op, t1, t4)
         assert v.numel() * 6000 / ((t4 - t1) * 1e-3) < 132 * 128 * 2e9, (op, t1, t4)
+
+
+def test_point_add_tiled_at_every_tile_on_a_ragged_n(cuda):
+    """K8 with a tile's CTA sized to fill its SM (min(tile, 384) threads):
+    at every tile of the sweep, on lane counts no tile divides (the last
+    CTA part full, a tile wider than n), equal to the plain add; one launch
+    a call."""
+    import numpy as np
+
+    from zklaim_tpu_torch.kernels.cases import curve_inputs
+    from zklaim_tpu_torch.tools import grid_micro
+
+    for n in (grid_micro.N + 77, 1000, 129):
+        p, q = curve_inputs(1, n, np.random.default_rng(n), cuda)
+        want = grid_micro.point_add_tiled_plain(p, q, 1)
+        for tile in grid_micro.TILES:
+            before = K.LAUNCHES["point_add_tiled"]
+            got = grid_micro.point_add_tiled(p, q, tile)
+            torch.cuda.synchronize()
+            assert K.LAUNCHES["point_add_tiled"] == before + 1
+            assert max_abs_err(got, want) == 0, (n, tile)
+
+
+def test_mont_mul_on_the_edge_values(cuda):
+    """K1 on every pair of the edge values of the CPU model test of fe_mul
+    (0, 1, R mod p, p - 1, p - 2, values with p's top word), Fq and Fr,
+    through its vector and its strided path, equal to mont_mul_plain."""
+    from zklaim_tpu_torch.ff import montgomery as M
+    from zklaim_tpu_torch.kernels.cases import edge_pairs
+
+    for spec in (M.FQ, M.FR):
+        a, b = edge_pairs(spec, cuda)
+        want = M.mont_mul_plain(spec, a, b)
+        assert max_abs_err(M.mont_mul(spec, a, b), want) == 0, spec.name
+        assert max_abs_err(M.mont_mul(spec, a.t().contiguous().t(), b), want) == 0, spec.name
 
 
 def test_bench_entry_point_in_a_fresh_process(cuda):

@@ -16,7 +16,9 @@ the original's float32 expression, which rounds twice a step: within
 K ulps, stated as a relative K * 2^-23.
 """
 
+import re
 from fractions import Fraction
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -98,6 +100,58 @@ def test_point_add_tiled_plain_is_point_add_for_every_tile(tile):
         grid_micro.point_add_tiled_plain(p, q, 0)
 
 
+def _probes_define(name: str) -> int:
+    src = (Path(grid_micro.__file__).resolve().parent.parent / "csrc" / "probes.cu").read_text()
+    assert f"__launch_bounds__({name})" in src
+    return int(re.search(rf"#define {name} (\d+)", src).group(1))
+
+
+def _tiled_walk(n: int, tile: int, threads: int):
+    """The lanes csrc/probes.cu's point_add_tiled_kernel adds, in the order
+    its CTAs, threads and steps name them: CTA c, thread t takes lanes
+    c tile + t, c tile + t + threads, ... below (c + 1) tile and below n."""
+    for cta in range(-(-n // tile)):
+        for t in range(threads):
+            for j in range(t, tile, threads):
+                if cta * tile + j >= n:
+                    break
+                yield cta * tile + j
+
+
+@pytest.mark.parametrize("tile", grid_micro.TILES)
+def test_point_add_tiled_threads_cover_every_lane_once(tile):
+    """K8's geometry as the wrapper picks it: a tile's CTA has min(tile, 384)
+    threads -- 384 is csrc/probes.cu's TILED_MAX_THREADS, its
+    __launch_bounds__ -- and the kernel's walk (CTA, thread, step) names
+    each lane once on the probe's n and on ragged ones; the plain version
+    is still point_add_plain at every tile."""
+    assert grid_micro.TILED_MAX_THREADS == _probes_define("TILED_MAX_THREADS") == 384
+    threads = grid_micro.tiled_threads(tile)
+    assert threads == min(tile, 384)
+    for n in (grid_micro.N, grid_micro.N + 77, 1000, 129):
+        lanes = list(_tiled_walk(n, tile, threads))
+        assert len(lanes) == n and sorted(lanes) == list(range(n)), (n, tile)
+    p, q = curve_inputs(1, 37, np.random.default_rng(tile), "cpu")
+    assert torch.equal(grid_micro.point_add_tiled(p, q, tile), point_add_plain(1, p, q))
+    with pytest.raises(ValueError):
+        grid_micro.tiled_threads(0)
+
+
+def test_point_add_chain_threads_spread_lanes_over_the_sms():
+    """K9's CTA size: 1,024 lanes on 132 SMs go to 32 CTAs of one warp (one
+    a SM); the card-filling width to CTAs of CHAIN_MAX_THREADS (csrc/
+    probes.cu, its __launch_bounds__); a CTA is whole warps, and the CTAs
+    never outnumber the SMs while a CTA is below the cap."""
+    assert padd_micro.CHAIN_MAX_THREADS == _probes_define("CHAIN_MAX_THREADS") == 256
+    assert padd_micro.chain_threads(padd_micro.LANES, 132) == 32
+    assert padd_micro.chain_threads(padd_micro.WIDE_LANES, 132) == 256
+    for n in (1, 31, 33, 1024, 4224, 4225, 30000, 1 << 20):
+        t = padd_micro.chain_threads(n, 132)
+        assert t % 32 == 0 and 32 <= t <= 256, n
+        if t < 256:
+            assert -(-n // t) <= 132, n
+
+
 def _numpy_op(op: str, v: np.ndarray, k: int) -> np.ndarray:
     """tools/pallas_op_micro.py:18-25 in numpy, k steps."""
     with np.errstate(over="ignore"):
@@ -154,7 +208,7 @@ def test_probe_cases_cover_k6_to_k9_and_agree_on_the_cpu():
     CPU (both sides are then the plain version): every probe kernel has a
     case, each is bound to its own inputs, and the bound is positive."""
     cases = probe_cases("cpu", np.random.default_rng(0), k_mont=2, k_op=3, k_add=1, n_tiled=16,
-                        wide_lanes=24)
+                        wide_lanes=24, n_ragged=21)
     assert [c.label for c in cases if c.kernel == "mont_chain"] == [
         "K6 mont_chain Fq lanes=1024 K=2", "K6 mont_chain Fq lanes=24 K=2"]
     assert {c.kernel for c in cases} == set(PROBE_KERNELS) <= set(KERNELS)
@@ -167,14 +221,15 @@ def test_probe_cases_cover_k6_to_k9_and_agree_on_the_cpu():
         assert ms > 0 and by in ("bytes", "operations")
     # a chain of k products is bound by operations, not by its 128 bytes a lane
     long_chain = probe_cases("cpu", np.random.default_rng(0), k_mont=512, n_tiled=16,
-                             wide_lanes=8)[0]
+                             wide_lanes=8, n_ragged=9)[0]
     assert bound_ms(long_chain)[1] == "operations"
     assert bound_ms(long_chain, mad_per_s=1e12)[0] > bound_ms(long_chain)[0]
     # K7 at the probe's own length counts operations over the rate the lanes start them at:
     # two a step for the integer ops, one for f32fma
     k, n = pallas_op_micro.CHAIN[1], pallas_op_micro.ROWS * pallas_op_micro.COLS
     by_op = {c.label.split()[2]: c for c in probe_cases("cpu", np.random.default_rng(0), k_mont=1,
-                                                        k_op=k, n_tiled=16, wide_lanes=8)
+                                                        k_op=k, n_tiled=16, wide_lanes=8,
+                                                        n_ragged=9)
              if c.kernel == "op_chain"}
     for op, per_step in (("u32mul", 2), ("u32add", 2), ("u16mul", 2), ("f32fma", 1)):
         assert bound_ms(by_op[op]) == (per_step * k * n / LANE_CLOCKS_PER_S * 1e3, "operations"), op

@@ -118,3 +118,35 @@ def test_ntt_profile_rows_on_the_cpu():
         for step in ntt_profile.STEPS + ("K2 ntt_local (planes, cluster of 2)",)]
     assert all(r["call_ms"] >= 0 and r["device_ms"] is None for r in rows)
     assert all("device not measured" in line for line in ntt_profile.format_rows(rows))
+
+
+SASS = """
+        Function : _Z17mont_chain_kernelPKilPilli
+        /*0000*/                   LDC R1, c[0x0][0x28] ;                     /* 0x00000a00ff017b82 */
+        /*0010*/                   IMAD.WIDE.U32 R2, R5, R6, RZ ;             /* 0x0000000000000000 */
+        /*0020*/                   IADD3 R8, P0, R2, R9, RZ ;                 /* 0x0000000000000000 */
+        /*0030*/                   IADD3.X R10, R3, R11, RZ, P0, !PT ;        /* 0x0000000000000000 */
+        /*0040*/                   LOP3.LUT R12, R7, R7, RZ, 0xfc, !PT ;      /* 0x0000000000000000 */
+        /*0050*/                   ISETP.NE.AND P1, PT, R10, RZ, PT ;         /* 0x0000000000000000 */
+        /*0060*/               @P1 BRA 0x10 ;                                 /* 0x0000000000000000 */
+        /*0070*/                   STG.E desc[UR4][R12.64], R10 ;             /* 0x0000000000000000 */
+        /*0080*/                   EXIT ;                                     /* 0x0000000000000000 */
+"""
+
+
+def test_kernel_ab_reads_a_loop_of_sass():
+    """tools/kernel_ab.py's SASS reading on a made-up loop: the body runs
+    from the backward branch's target to the branch (6 instructions, one
+    IMAD-class), and its critical path follows the wide product's register
+    pair and the carry predicate into the compare and the branch (5)."""
+    from zklaim_tpu_torch.tools import kernel_ab
+
+    funcs = kernel_ab.parse_sass(SASS)
+    assert list(funcs) == ["_Z17mont_chain_kernelPKilPilli"]
+    body = kernel_ab.loop_body(funcs["_Z17mont_chain_kernelPKilPilli"])
+    assert [i[0] for i in body] == [0x10, 0x20, 0x30, 0x40, 0x50, 0x60]
+    assert kernel_ab.loop_stats(funcs, "mont_chain_kernel") == {
+        "function": "_Z17mont_chain_kernelPKilPilli", "instructions": 6, "imad_class": 1,
+        "critical_path": 5}
+    assert kernel_ab._label("K8 point_add_tiled G1 n=9 tile=4 threads=4") == \
+        "K8 point_add_tiled G1 n=9 tile=4"

@@ -15,9 +15,9 @@
 //
 // What bounds it on the card: integer multiply-add throughput (64 32x32
 // products per CIOS multiply) and registers (an Fe is 8 registers; a G2
-// point add keeps ~20 Fe live).  Design: 64-bit accumulators in fe_mul so the
-// compiler emits mad.lo/mad.hi carry chains, add and subtract as add.cc /
-// sub.cc chains in PTX, constants in __constant__
+// point add keeps ~20 Fe live).  Design: fe_mul as PTX mad.lo.cc /
+// madc.hi.cc chains over a running sum split in two halves (below), add and
+// subtract as add.cc / sub.cc chains in PTX, constants in __constant__
 // memory (every thread reads the same address: a broadcast), everything
 // force-inlined so each kernel is one straight-line register program.
 #pragma once
@@ -191,45 +191,137 @@ __device__ __forceinline__ Fe fe_dbl(const Fe& a) {
 }
 
 // ---------------------------------------------------------------------------
-// Montgomery multiply: CIOS, 8 x 32-bit limbs, R = 2^256
+// Montgomery multiply: CIOS, 8 x 32-bit words, R = 2^256, in PTX carry chains
 // ---------------------------------------------------------------------------
+//
+// Replaces: zklaim_tpu/ff/pallas_field.py:mont_mul (no pallas_call of its
+// own: every Pallas kernel inlines it).  The form is sppark's mont_t
+// product for moduli with spare bits.
+//
+// The running sum t of CIOS is held in two halves of eight words: e takes
+// the products a[j] b[i] of the even words of a (lo at word j, hi at word
+// j + 1), o those of the odd words, one word up.  So the lo and hi of every
+// product land in neighbouring words of one half, and the products of a
+// round are two carry chains of mad.lo.cc / madc.hi.cc pairs that share no
+// register: 4 + 4 multiply-add pairs, each chain as deep as four products,
+// where one chain over the whole sum is as deep as eight.  After a round's
+// reduction word 0 of t is 0 and t moves down a word.  That move is a change
+// of roles: the half that was one word up is aligned now and the other one
+// word down (its word k at word k - 1, word 0 spent), so the rounds call the
+// same two functions with e and o swapped, and the next round's first chain
+// moves the down half back up while it adds.
+//
+// No-carry form.  Both moduli have top word 0x30644e72 < 2^31 - 1, so p <
+// 2^255.  At the start of a round t < 2p, and t + a b[i] + m p < 2p + 2 p
+// (2^32 - 1) = 2^33 p < 2^288: a round's sum fits in nine words (e, and o one
+// word up), the chains that end at word 8 carry out 0, and no tenth word is
+// kept.  At the end t < 2p < 2^256; one conditional subtraction gives the
+// canonical abR^-1 mod p, limb for limb the JAX package's SOS/REDC.
+// tests/test_torch_field_cios.py runs these asm blocks, parsed from this
+// file, on Python integers against that product and checks that every
+// carry this code drops is 0.
+
+// One round's products a b_i, added into the split sum: e is aligned and o
+// one word down (o[k] at word k - 1; o[0] is spent).  Chain 1: e[0] += o[1],
+// then o[k] = o[k + 2] + (a[k + 1] b_i)[lo or hi] for k = 0 .. 7 (o[8], o[9]
+// read as 0): o is one word up again, holding the odd products; its carry
+// out of word 8 is 0.  Chain 2: e[j], e[j + 1] += a[j] b_i for the even j,
+// its carry into o[7].
+__device__ __forceinline__ void cios_mul_round(uint32_t (&e)[8], uint32_t (&o)[8], const Fe& a,
+                                               uint32_t bi) {
+  asm("add.cc.u32 %0, %0, %9;\n\t"
+      "madc.lo.cc.u32 %8, %17, %24, %10;\n\t"
+      "madc.hi.cc.u32 %9, %17, %24, %11;\n\t"
+      "madc.lo.cc.u32 %10, %19, %24, %12;\n\t"
+      "madc.hi.cc.u32 %11, %19, %24, %13;\n\t"
+      "madc.lo.cc.u32 %12, %21, %24, %14;\n\t"
+      "madc.hi.cc.u32 %13, %21, %24, %15;\n\t"
+      "madc.lo.cc.u32 %14, %23, %24, 0;\n\t"
+      "madc.hi.u32 %15, %23, %24, 0;\n\t"
+      "mad.lo.cc.u32 %0, %16, %24, %0;\n\t"
+      "madc.hi.cc.u32 %1, %16, %24, %1;\n\t"
+      "madc.lo.cc.u32 %2, %18, %24, %2;\n\t"
+      "madc.hi.cc.u32 %3, %18, %24, %3;\n\t"
+      "madc.lo.cc.u32 %4, %20, %24, %4;\n\t"
+      "madc.hi.cc.u32 %5, %20, %24, %5;\n\t"
+      "madc.lo.cc.u32 %6, %22, %24, %6;\n\t"
+      "madc.hi.cc.u32 %7, %22, %24, %7;\n\t"
+      "addc.u32 %15, %15, 0;"
+      : "+r"(e[0]), "+r"(e[1]), "+r"(e[2]), "+r"(e[3]), "+r"(e[4]), "+r"(e[5]), "+r"(e[6]), "+r"(e[7]),
+        "+r"(o[0]), "+r"(o[1]), "+r"(o[2]), "+r"(o[3]), "+r"(o[4]), "+r"(o[5]), "+r"(o[6]), "+r"(o[7])
+      : "r"(a.v[0]), "r"(a.v[1]), "r"(a.v[2]), "r"(a.v[3]), "r"(a.v[4]), "r"(a.v[5]), "r"(a.v[6]), "r"(a.v[7]), "r"(bi));
+}
+
+// The first round: t = a b_0, nothing to add it to
+__device__ __forceinline__ void cios_first_round(uint32_t (&e)[8], uint32_t (&o)[8], const Fe& a,
+                                                 uint32_t b0) {
+#pragma unroll
+  for (int j = 0; j < 8; j += 2) {
+    e[j] = a.v[j] * b0;
+    e[j + 1] = __umulhi(a.v[j], b0);
+    o[j] = a.v[j + 1] * b0;
+    o[j + 1] = __umulhi(a.v[j + 1], b0);
+  }
+}
+
+// A round's reduction, t += m p with m = e[0] n' mod 2^32, e aligned and o
+// one word up: chain 3 adds the odd words of p into o (its carry out of word
+// 8 is 0), chain 4 the even words into e, carrying into o[7].  Afterwards
+// e[0] = 0: the caller's next round takes o as the aligned half.
+template <int F>
+__device__ __forceinline__ void cios_redc_round(uint32_t (&e)[8], uint32_t (&o)[8]) {
+  const uint32_t m = e[0] * ZK_NP[F];
+  asm("mad.lo.cc.u32 %8, %17, %24, %8;\n\t"
+      "madc.hi.cc.u32 %9, %17, %24, %9;\n\t"
+      "madc.lo.cc.u32 %10, %19, %24, %10;\n\t"
+      "madc.hi.cc.u32 %11, %19, %24, %11;\n\t"
+      "madc.lo.cc.u32 %12, %21, %24, %12;\n\t"
+      "madc.hi.cc.u32 %13, %21, %24, %13;\n\t"
+      "madc.lo.cc.u32 %14, %23, %24, %14;\n\t"
+      "madc.hi.u32 %15, %23, %24, %15;\n\t"
+      "mad.lo.cc.u32 %0, %16, %24, %0;\n\t"
+      "madc.hi.cc.u32 %1, %16, %24, %1;\n\t"
+      "madc.lo.cc.u32 %2, %18, %24, %2;\n\t"
+      "madc.hi.cc.u32 %3, %18, %24, %3;\n\t"
+      "madc.lo.cc.u32 %4, %20, %24, %4;\n\t"
+      "madc.hi.cc.u32 %5, %20, %24, %5;\n\t"
+      "madc.lo.cc.u32 %6, %22, %24, %6;\n\t"
+      "madc.hi.cc.u32 %7, %22, %24, %7;\n\t"
+      "addc.u32 %15, %15, 0;"
+      : "+r"(e[0]), "+r"(e[1]), "+r"(e[2]), "+r"(e[3]), "+r"(e[4]), "+r"(e[5]), "+r"(e[6]), "+r"(e[7]),
+        "+r"(o[0]), "+r"(o[1]), "+r"(o[2]), "+r"(o[3]), "+r"(o[4]), "+r"(o[5]), "+r"(o[6]), "+r"(o[7])
+      : "r"(ZK_P[F][0]), "r"(ZK_P[F][1]), "r"(ZK_P[F][2]), "r"(ZK_P[F][3]), "r"(ZK_P[F][4]), "r"(ZK_P[F][5]), "r"(ZK_P[F][6]), "r"(ZK_P[F][7]), "r"(m));
+}
 
 template <int F>
 __device__ __forceinline__ Fe fe_mul(const Fe& a, const Fe& b) {
-  uint32_t t[10];
+  uint32_t e[8], o[8];
 #pragma unroll
-  for (int j = 0; j < 10; j++) t[j] = 0;
-#pragma unroll
-  for (int i = 0; i < 8; i++) {
-    // t += a * b[i]
-    uint64_t c = 0;
-#pragma unroll
-    for (int j = 0; j < 8; j++) {
-      uint64_t s = (uint64_t)a.v[j] * b.v[i] + t[j] + c;
-      t[j] = (uint32_t)s;
-      c = s >> 32;
+  for (int i = 0; i < 8; i += 2) {
+    if (i == 0) {
+      cios_first_round(e, o, a, b.v[0]);
+    } else {
+      cios_mul_round(e, o, a, b.v[i]);
     }
-    uint64_t s = (uint64_t)t[8] + c;
-    t[8] = (uint32_t)s;
-    t[9] = (uint32_t)(s >> 32);
-    // t = (t + m p) / 2^32 with m = t[0] n' mod 2^32
-    uint32_t m = t[0] * ZK_NP[F];
-    s = (uint64_t)m * ZK_P[F][0] + t[0];
-    c = s >> 32;
-#pragma unroll
-    for (int j = 1; j < 8; j++) {
-      s = (uint64_t)m * ZK_P[F][j] + t[j] + c;
-      t[j - 1] = (uint32_t)s;
-      c = s >> 32;
-    }
-    s = (uint64_t)t[8] + c;
-    t[7] = (uint32_t)s;
-    t[8] = t[9] + (uint32_t)(s >> 32);
+    cios_redc_round<F>(e, o);
+    cios_mul_round(o, e, a, b.v[i + 1]);
+    cios_redc_round<F>(o, e);
   }
+  // e is aligned and o one word down: t = e + (o >> 32), below 2p
+  asm("add.cc.u32 %0, %0, %8;\n\t"
+      "addc.cc.u32 %1, %1, %9;\n\t"
+      "addc.cc.u32 %2, %2, %10;\n\t"
+      "addc.cc.u32 %3, %3, %11;\n\t"
+      "addc.cc.u32 %4, %4, %12;\n\t"
+      "addc.cc.u32 %5, %5, %13;\n\t"
+      "addc.cc.u32 %6, %6, %14;\n\t"
+      "addc.u32 %7, %7, 0;"
+      : "+r"(e[0]), "+r"(e[1]), "+r"(e[2]), "+r"(e[3]), "+r"(e[4]), "+r"(e[5]), "+r"(e[6]), "+r"(e[7])
+      : "r"(o[1]), "r"(o[2]), "r"(o[3]), "r"(o[4]), "r"(o[5]), "r"(o[6]), "r"(o[7]));
   Fe r;
 #pragma unroll
-  for (int j = 0; j < 8; j++) r.v[j] = t[j];
-  return fe_reduce_once<F>(r, t[8]);   // result < 2p
+  for (int j = 0; j < 8; j++) r.v[j] = e[j];
+  return fe_reduce_once<F>(r, 0);
 }
 
 // ---------------------------------------------------------------------------

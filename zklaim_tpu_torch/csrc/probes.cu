@@ -32,8 +32,16 @@
 // K8 point_add_tiled
 // Replaces: the kernel of tools/grid_micro.py:build(tile) (launched at
 // :25): one G1 add over n lanes, the launch cut as the Pallas grid is, into
-// n / tile CTAs.  Each CTA walks its `tile` lanes with a fixed block of
-// TILED_THREADS threads.  What the grid-step overhead is on the TPU is here
+// ceil(n / tile) CTAs, one a tile.  A tile's CTA has min(tile,
+// TILED_MAX_THREADS) threads (the wrapper, tools/grid_micro.py:
+// tiled_threads, picks the count and passes it), each walking the lanes j,
+// j + threads, ... of its tile.  TILED_MAX_THREADS is what one SM holds at
+// the kernel's register count: unbounded, ptxas (CUDA 12.8) gives it 140
+// registers, so an SM holds 12 warps of it (registers go to warps in
+// groups of four); at the 128 registers that 16 warps would need it
+// spills.  So a tile of 384 lanes or more keeps 12 warps, three a
+// scheduler, on its SM, where a CTA of 128 threads kept one a scheduler and
+// walked a tile three times as long.  What the grid-step overhead is on the TPU is here
 // the cost of CTA granularity: with few CTAs most of the 132 SMs idle, and
 // one CTA that owns every lane runs on one SM.
 //
@@ -41,7 +49,11 @@
 // Replaces: the kernel of tools/padd_micro.py:build(K) (launched at :24):
 // K chained G1 adds pt <- pt + pt on (3, 16, lanes) planes, each the complete
 // rcb_add<1> (12 Fq products a step).  Bound by integer multiply-adds and,
-// at K4's 108 registers a thread, by how many lanes an SM keeps in flight.
+// at 1,024 lanes (32 warps), by the latency of one warp's dependent chain:
+// the wrapper (tools/padd_micro.py:chain_threads) cuts the lanes into CTAs
+// of as few warps as spread them over the card's SMs, one warp a scheduler
+// (1,024 lanes: 32 CTAs of one warp on 32 SMs, where 8 CTAs of 128 threads
+// ran on 8), up to CHAIN_MAX_THREADS a CTA where lanes are many.
 #include <cuda_runtime.h>
 
 #include "field.cuh"
@@ -131,12 +143,13 @@ extern "C" int zk_op_chain(int op, const void* in, void* out, long long n, int k
 // K8
 // ---------------------------------------------------------------------------
 
-#define TILED_THREADS 128
+#define TILED_MAX_THREADS 384
 
-__global__ void point_add_tiled_kernel(const int32_t* __restrict__ p, int64_t p_ps, int64_t p_ls,
-                                       const int32_t* __restrict__ q, int64_t q_ps, int64_t q_ls,
-                                       int32_t* __restrict__ out, int64_t o_ps, int64_t o_ls,
-                                       int64_t n, int64_t tile) {
+__global__ void __launch_bounds__(TILED_MAX_THREADS)
+point_add_tiled_kernel(const int32_t* __restrict__ p, int64_t p_ps, int64_t p_ls,
+                       const int32_t* __restrict__ q, int64_t q_ps, int64_t q_ls,
+                       int32_t* __restrict__ out, int64_t o_ps, int64_t o_ls,
+                       int64_t n, int64_t tile) {
   typedef CurveField<1> Fd;
   const int64_t base = (int64_t)blockIdx.x * tile;
   for (int64_t j = threadIdx.x; j < tile; j += blockDim.x) {
@@ -159,11 +172,11 @@ __global__ void point_add_tiled_kernel(const int32_t* __restrict__ p, int64_t p_
 extern "C" int zk_point_add_tiled(const void* p, long long p_ps, long long p_ls,
                                   const void* q, long long q_ps, long long q_ls,
                                   void* out, long long o_ps, long long o_ls,
-                                  long long n, long long tile, void* stream) {
+                                  long long n, long long tile, int threads, void* stream) {
   if (n <= 0) return 0;
-  if (tile <= 0) return (int)cudaErrorInvalidValue;
+  if (tile <= 0 || threads <= 0 || threads > TILED_MAX_THREADS) return (int)cudaErrorInvalidValue;
   const unsigned blocks = (unsigned)((n + tile - 1) / tile);
-  point_add_tiled_kernel<<<blocks, TILED_THREADS, 0, (cudaStream_t)stream>>>(
+  point_add_tiled_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       (const int32_t*)p, p_ps, p_ls, (const int32_t*)q, q_ps, q_ls,
       (int32_t*)out, o_ps, o_ls, n, tile);
   return (int)cudaGetLastError();
@@ -173,9 +186,11 @@ extern "C" int zk_point_add_tiled(const void* p, long long p_ps, long long p_ls,
 // K9
 // ---------------------------------------------------------------------------
 
-__global__ void point_add_chain_kernel(const int32_t* __restrict__ p, int64_t p_ps, int64_t p_ls,
-                                       int32_t* __restrict__ out, int64_t o_ps, int64_t o_ls,
-                                       int64_t n, int k) {
+#define CHAIN_MAX_THREADS 256
+
+__global__ void __launch_bounds__(CHAIN_MAX_THREADS)
+point_add_chain_kernel(const int32_t* __restrict__ p, int64_t p_ps, int64_t p_ls,
+                       int32_t* __restrict__ out, int64_t o_ps, int64_t o_ls, int64_t n, int k) {
   typedef CurveField<1> Fd;
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
@@ -197,10 +212,9 @@ __global__ void point_add_chain_kernel(const int32_t* __restrict__ p, int64_t p_
 
 extern "C" int zk_point_add_chain(const void* p, long long p_ps, long long p_ls,
                                   void* out, long long o_ps, long long o_ls,
-                                  long long n, int k, void* stream) {
+                                  long long n, int k, int threads, void* stream) {
   if (n <= 0) return 0;
-  if (k < 0) return (int)cudaErrorInvalidValue;
-  const int threads = 128;
+  if (k < 0 || threads <= 0 || threads > CHAIN_MAX_THREADS) return (int)cudaErrorInvalidValue;
   const unsigned blocks = (unsigned)((n + threads - 1) / threads);
   point_add_chain_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       (const int32_t*)p, p_ps, p_ls, (int32_t*)out, o_ps, o_ls, n, k);

@@ -61,8 +61,9 @@ KERNELS = {
     # the probes of the measuring path (csrc/probes.cu)
     "mont_chain": ("zk_mont_chain", [_P, _I64, _P, _I64, _I64, _I]),
     "op_chain": ("zk_op_chain", [_I, _P, _P, _I64, _I]),
-    "point_add_tiled": ("zk_point_add_tiled", [_P, _I64, _I64, _P, _I64, _I64, _P, _I64, _I64, _I64, _I64]),
-    "point_add_chain": ("zk_point_add_chain", [_P, _I64, _I64, _P, _I64, _I64, _I64, _I]),
+    "point_add_tiled": ("zk_point_add_tiled", [_P, _I64, _I64, _P, _I64, _I64, _P, _I64, _I64, _I64, _I64,
+                                               _I]),
+    "point_add_chain": ("zk_point_add_chain", [_P, _I64, _I64, _P, _I64, _I64, _I64, _I, _I]),
 }
 # the kernels a proof must launch (mont_pow only where a key is serialized:
 # the issuer's trusted_setup; point_double only in scalar_mul / msm_ladder),

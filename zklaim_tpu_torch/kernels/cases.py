@@ -121,6 +121,23 @@ def random_field(spec, n: int, rng: np.random.Generator, device) -> torch.Tensor
     return to_tensor(ints_to_limbs(vals), device)
 
 
+def field_edge_values(spec) -> list:
+    """The product's edge values: 0, 1, R mod p, p - 1, p - 2, and values
+    whose top 32-bit word is p's (0x30644e72, the word the no-carry form of
+    csrc/field.cuh's fe_mul rests on)."""
+    top = spec.p >> 224 << 224
+    return [0, 1, spec.r_mod, spec.p - 1, spec.p - 2, top, top + 1, top + (spec.p - top) // 3,
+            spec.p - 3]
+
+
+def edge_pairs(spec, device) -> tuple:
+    """(a, b) as (n, 16) limbs: every pair of field_edge_values."""
+    edges = field_edge_values(spec)
+    a = [x for x in edges for _ in edges]
+    b = edges * len(edges)
+    return tuple(to_tensor(ints_to_limbs(v), device) for v in (a, b))
+
+
 def random_points(deg: int, n: int, rng: np.random.Generator, device,
                   pool: int = 32) -> torch.Tensor:
     """(3 deg, 16, n) planes of random projective points."""
@@ -159,7 +176,8 @@ def curve_inputs(deg: int, n: int, rng: np.random.Generator, device):
 def kernel_cases(device, n_field: int = 1 << 15, n_ntt: int = 1 << 15, n_ntt_big: int = 1 << 22,
                  n_g1: int = 1 << 16, n_g2: int = 1 << 15, seed: int = 0) -> list:
     """The kernels of the proving paths at the given widths (defaults: the
-    main path's; K1 also on an unaligned operand; K2 also through its
+    main path's; K1 also on every pair of the edge values of both fields
+    (edge_pairs) and on an unaligned operand; K2 also through its
     gather entry; K2 and K3 also at the bench's largest transform,
     n_ntt_big, K3 there in two passes, and on the four-step NTT's batches
     (batched_ntt_cases); the doubling also at 4 G1
@@ -174,7 +192,13 @@ def kernel_cases(device, n_field: int = 1 << 15, n_ntt: int = 1 << 15, n_ntt_big
                           lambda s=spec, a=a, b=b: M.mont_mul(s, a, b),
                           lambda s=spec, a=a, b=b: M.mont_mul_plain(s, a, b),
                           3 * n_field, n_field))
-    # the last product again on an operand 4 bytes off 16-byte alignment: K1
+    for es in (FQ, FR):
+        ea, eb = edge_pairs(es, device)
+        cases.append(Case("mont_mul", f"K1 mont_mul {es.name} edge values, all {ea.shape[0]} pairs",
+                          lambda s=es, a=ea, b=eb: M.mont_mul(s, a, b),
+                          lambda s=es, a=ea, b=eb: M.mont_mul_plain(s, a, b),
+                          3 * ea.shape[0], ea.shape[0]))
+    # the last random product again on an operand 4 bytes off 16-byte alignment: K1
     # then takes its strided scalar loads, the path of every odd view
     buf = torch.zeros(n_field * 16 + 4, dtype=torch.int32, device=device)
     off = buf[1 : 1 + n_field * 16].view(n_field, 16)
@@ -358,9 +382,11 @@ def loop_cases(device, rng: np.random.Generator, n_pow: int = 1 << 15,
 
 def probe_cases(device, rng: np.random.Generator, k_mont: int = 16, k_op: int = 16,
                 k_add: int = 5, n_tiled: int | None = None, wide_lanes: int | None = None,
-                k_wide: int = 2) -> list:
+                k_wide: int = 2, n_ragged: int | None = None) -> list:
     """The probes K6-K9 at their originals' shapes and small chain lengths,
-    K6 also at the card's width (wide_lanes, default mont_micro.WIDE_LANES).
+    K6 also at the card's width (wide_lanes, default mont_micro.WIDE_LANES),
+    K8 also on a ragged lane count at every tile (n_ragged, default 2^15 +
+    77: no tile divides it, and the last CTA of every tile is part full).
 
     Work of a call: K6 k products a lane; K7 k steps an element (see the
     module docstring); K8 as K4; K9 12 k products a lane."""
@@ -385,20 +411,23 @@ def probe_cases(device, rng: np.random.Generator, k_mont: int = 16, k_op: int = 
                           0, 0, ops=(1 if fma else 2) * k_op * v.numel(),
                           extra_bytes=2 * 4 * v.numel()))
 
-    n = n_tiled or grid_micro.N
-    p, q = curve_inputs(1, n, rng, device)
-    for tile in dict.fromkeys(min(t, n) for t in grid_micro.TILES):
-        cases.append(Case("point_add_tiled", f"K8 point_add_tiled G1 n={n} tile={tile}",
-                          lambda t=tile: grid_micro.point_add_tiled(p, q, t),
-                          lambda t=tile: grid_micro.point_add_tiled_plain(p, q, t),
-                          9 * n, ADD_PRODUCTS[1] * n))
+    def tiled(n, what):
+        p, q = curve_inputs(1, n, rng, device)
+        for tile in dict.fromkeys(min(t, n) for t in grid_micro.TILES):
+            cases.append(Case("point_add_tiled", f"K8 point_add_tiled G1 n={n}{what} tile={tile} "
+                                                 f"threads={grid_micro.tiled_threads(tile)}",
+                              lambda t=tile: grid_micro.point_add_tiled(p, q, t),
+                              lambda t=tile: grid_micro.point_add_tiled_plain(p, q, t),
+                              9 * n, ADD_PRODUCTS[1] * n))
 
+    tiled(n_tiled or grid_micro.N, "")
     lanes = padd_micro.LANES
     pt = random_points(1, lanes, rng, device)
     cases.append(Case("point_add_chain", f"K9 point_add_chain G1 lanes={lanes} K={k_add}",
                       lambda: padd_micro.point_add_chain(pt, k_add),
                       lambda: padd_micro.point_add_chain_plain(pt, k_add),
                       6 * lanes, ADD_PRODUCTS[1] * k_add * lanes))
+    tiled(n_ragged or grid_micro.N + 77, " (ragged)")
     return cases
 
 

@@ -6,7 +6,10 @@ with each lane's point held in registers (one load, one store), so
 (t(K2) - t(K1)) / (K2 - K1) is the cost of one add step -- csrc/rcb.cuh's
 rcb_add, the function kernel K4 runs: 12 Fq products and some twenty
 modular additions -- with launch, load and store cancelled.  Measured at the
-original's shape, 1024 lanes (8 warps), and at WIDE_LANES, which fills the card.
+original's shape, 1024 lanes (32 warps), and at WIDE_LANES, which fills the
+card.  The lanes go to CTAs of chain_threads(n, SMs) threads: as few warps a
+CTA as spread them over every SM (1,024 lanes: 32 CTAs of one warp), up to
+256.
 
 Inputs are points on the curve (the original draws raw limbs).
 
@@ -34,6 +37,15 @@ WIDE_LANES = 4 * 132 * 2048
 CHAIN = (16, 128)
 CHAIN_CPU = (1, 3)
 SEED = 0
+CHAIN_MAX_THREADS = 256          # csrc/probes.cu's CHAIN_MAX_THREADS, its __launch_bounds__
+
+
+def chain_threads(n: int, sms: int) -> int:
+    """Threads of K9's CTA for n lanes on a card of `sms` SMs: the fewest
+    warps a CTA that put every lane on one of the SMs, at most
+    CHAIN_MAX_THREADS."""
+    warps = -(-n // 32)
+    return 32 * max(1, min(-(-warps // sms), CHAIN_MAX_THREADS // 32))
 
 
 def point_add_chain_plain(p: torch.Tensor, k: int) -> torch.Tensor:
@@ -56,8 +68,10 @@ def point_add_chain(p: torch.Tensor, k: int) -> torch.Tensor:
     n = p.shape[2]
     out = torch.empty((3, 16, n), dtype=torch.int32, device=dev)
     if n:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
         K.launch("point_add_chain", p.data_ptr(), p.stride(0), p.stride(1),
-                 out.data_ptr(), out.stride(0), out.stride(1), n, k, device=dev)
+                 out.data_ptr(), out.stride(0), out.stride(1), n, k, chain_threads(n, sms),
+                 device=dev)
     return out
 
 
@@ -72,6 +86,7 @@ def measure(device, widths=(LANES, WIDE_LANES)) -> list:
     """One row per width: the differenced cost of an add step."""
     device = torch.device(device)
     k1, k2 = CHAIN if device.type == "cuda" else CHAIN_CPU
+    sms = torch.cuda.get_device_properties(device).multi_processor_count if device.type == "cuda" else 0
     rows = []
     for lanes in widths:
         p = probe_input(lanes, device)
@@ -80,7 +95,8 @@ def measure(device, widths=(LANES, WIDE_LANES)) -> list:
         step_ms = (t2 - t1) / (k2 - k1)
         rows.append({
             "probe": "padd_micro", "kernel": "point_add_chain", "device": card_label(device),
-            "lanes": lanes, "k1": k1, "k2": k2, "t1_ms": t1, "t2_ms": t2,
+            "lanes": lanes, "threads": chain_threads(lanes, sms) if sms else None,
+            "k1": k1, "k2": k2, "t1_ms": t1, "t2_ms": t2,
             "us_per_step": step_ms * 1e3,
             "ns_per_lane": step_ms * 1e6 / lanes,
             "adds_per_s": lanes / (step_ms * 1e-3),
@@ -91,7 +107,9 @@ def measure(device, widths=(LANES, WIDE_LANES)) -> list:
 
 def format_row(r: dict) -> str:
     return (f"[{r['device']}] t1={r['t1_ms']:.3f}ms t2={r['t2_ms']:.3f}ms  point_add: "
-            f"{r['us_per_step']:.3f} us per (,{r['lanes']}) block = {r['ns_per_lane']:.4f} ns/lane"
+            f"{r['us_per_step']:.3f} us per (,{r['lanes']}) block"
+            f"{'' if r['threads'] is None else ' in CTAs of %d threads' % r['threads']}"
+            f" = {r['ns_per_lane']:.4f} ns/lane"
             f"  ({r['adds_per_s'] / 1e6:.2f} M adds/s, "
             f"{r['mads_per_s'] / 1e12:.3f} T 32-bit multiply-adds/s in products)")
 

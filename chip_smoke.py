@@ -12,7 +12,9 @@
    registers; a stack frame or a spill in any kernel fails the run.  K2's
    two entries again on their own
    lines beside K2's cluster launch (cluster size, CTAs, threads, shared
-   memory a CTA) at the credential path's 2^15 and the bench's 2^22.
+   memory a CTA) at the credential path's 2^15 and the bench's 2^22, and
+   K6's launch (CTAs, threads a CTA, one lane a thread) at the probe's two
+   widths.
 3. Probes phase: the four probes of the measuring path
    (zklaim_tpu_torch.tools.mont_micro, pallas_op_micro, grid_micro,
    padd_micro: kernels K6-K9), each at its original's shape and at a width that
@@ -27,7 +29,12 @@
    the paths make it (CUDA events around 20 wrapper calls: mostly the host's
    time where the kernel is short) and the card's own time (the replay of a
    CUDA graph that holds 10 captured calls, utils.profiling.device_ms); the
-   floor of a wrapper call, a product of ONE element, is printed once.  The
+   floor of a wrapper call, a product of ONE element, is printed once, and
+   beside it the floor of a launch on the card itself, the graph replay of
+   K7 at k = 0 on one element, against which small cases are read (K7's
+   headline runs the tool's chain of 20,000 steps for that reason), and
+   K6 at the card's width at K = 0 and 2 beside a PyTorch copy of the same
+   planes (x.clone()), the card's rate for those bytes.  The
    plain version is timed too (once where it takes seconds), and each case's
    bound is printed: the least time the card could take for the same work
    (kernels/cases.py), held against the device time, at the assumed and at
@@ -413,10 +420,17 @@ def main() -> None:
         print(f"[{card}] K2 launch at n = 2^{n.bit_length() - 1}: clusters of {cfg['cluster']} CTAs, "
               f"{cfg['ctas']} CTAs of {cfg['threads']} threads, {cfg['shared_bytes']} B of "
               f"shared memory a CTA")
+    dev = torch.device("cuda:0")
+    sms = K.sm_count(dev)
+    record["k6_plan"] = {n: {"threads": mont_micro.chain_threads(n, sms)}
+                         for n in (mont_micro.LANES, mont_micro.WIDE_LANES)}
+    for n, plan in record["k6_plan"].items():
+        plan["ctas"] = -(-n // plan["threads"])
+        print(f"[{card}] K6 launch at {n} lanes ({sms} SMs): {plan['ctas']} CTAs of "
+              f"{plan['threads']} threads, one lane a thread, 0 B of shared memory a CTA")
     sys.stdout.flush()
 
     # -- 3a. probes phase: K6-K9 through their tools ------------------------
-    dev = torch.device("cuda:0")
     rows = {k: {"name": k, "route": "cuda", "source": s, "replaces": r, "launches": 0,
                 "max_abs_err": 0, "ms": None, "device_ms": None, "plain_ms": None,
                 "bound_ms": None, "bound_by": None, "library_ms": None}
@@ -446,6 +460,17 @@ def main() -> None:
     record["wrapper_floor_ms"] = _ms(lambda: M.mont_mul(M.FR, one, one), 200)
     print(f"[{card}] floor of a wrapper call (mont_mul on one element, CUDA events around 200 "
           f"calls): {record['wrapper_floor_ms']:.4f} ms", flush=True)
+    v1 = torch.ones(1, dtype=torch.int32, device=dev)
+    record["launch_floor_device_ms"] = device_ms(lambda: pallas_op_micro.op_chain("u32mul", v1, 0))
+    print(f"[{card}] floor of a launch on the card (K7 at k = 0 on one element, graph replay): "
+          f"{record['launch_floor_device_ms']:.4f} ms", flush=True)
+    xw = mont_micro.probe_input(mont_micro.WIDE_LANES, dev)
+    record["k6_bytes_ms"] = {"K6 K=0": device_ms(lambda: mont_micro.mont_chain(xw, 0)),
+                             "K6 K=2": device_ms(lambda: mont_micro.mont_chain(xw, 2)),
+                             "x.clone()": device_ms(lambda: xw.clone())}
+    print(f"[{card}] K6's bytes at {mont_micro.WIDE_LANES} lanes (graph replay, ms): "
+          f"{json.dumps(record['k6_bytes_ms'])}", flush=True)
+    del xw
     record["cases"] = []
     for case in kernel_cases(dev, seed=SEED):
         if case.plain_once:              # seconds a call: the comparison's own run is the timing

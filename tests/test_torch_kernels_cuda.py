@@ -429,18 +429,22 @@ def test_probe_wrappers_reject_bad_operands(cuda):
 def test_probes_scale_linearly_in_chain_length(cuda):
     """The compiler did not fold a probe's loop: the time of 4 K steps is
     well above that of K steps (between 2 and 6 times it), for every op, for
-    K6, and for K9 at its original's 1,024 lanes in its CTAs of one warp;
+    K6 at the card's width and at its original's 1,024 lanes in CTAs of one
+    warp, and for K9 at its original's 1,024 lanes in its CTAs of one warp;
     and no op runs above one instruction a lane a clock on every SM (132 SMs
     x 128 lanes x 2 GHz): merged steps would."""
     from zklaim_tpu_torch.tools import mont_micro, padd_micro, pallas_op_micro
     from zklaim_tpu_torch.utils.profiling import best_ms
 
-    x = mont_micro.probe_input(mont_micro.WIDE_LANES, cuda)
-    t1, t4 = (best_ms(lambda k=k: mont_micro.mont_chain(x, k), cuda) for k in (256, 1024))
-    assert 2 < t4 / t1 < 6, (t1, t4)
+    sms = K.sm_count(cuda)
+    for lanes, threads, ks in ((mont_micro.WIDE_LANES, 256, (256, 1024)),
+                               (mont_micro.LANES, 32, (64, 256))):
+        assert mont_micro.chain_threads(lanes, sms) == threads
+        x = mont_micro.probe_input(lanes, cuda)
+        t1, t4 = (best_ms(lambda k=k: mont_micro.mont_chain(x, k), cuda) for k in ks)
+        assert 2 < t4 / t1 < 6, (lanes, t1, t4)
     pt = padd_micro.probe_input(padd_micro.LANES, cuda)
-    assert padd_micro.chain_threads(pt.shape[2], torch.cuda.get_device_properties(cuda)
-                                    .multi_processor_count) == 32
+    assert padd_micro.chain_threads(pt.shape[2], sms) == 32
     t1, t4 = (best_ms(lambda k=k: padd_micro.point_add_chain(pt, k), cuda) for k in (32, 128))
     assert 2 < t4 / t1 < 6, ("point_add_chain", t1, t4)
     for op in pallas_op_micro.OPS:
@@ -449,6 +453,30 @@ def test_probes_scale_linearly_in_chain_length(cuda):
                   for k in (2000, 8000))
         assert 2 < t4 / t1 < 6, (op, t1, t4)
         assert v.numel() * 6000 / ((t4 - t1) * 1e-3) < 132 * 128 * 2e9, (op, t1, t4)
+
+
+def test_mont_chain_on_ragged_lanes_and_plane_strides(cuda):
+    """K6 on lane counts no CTA size divides -- 1,023 and 1,101 lanes (32 and
+    35 CTAs of one warp, on as many SMs) and the card's width + 77 (4,225
+    CTAs of 256, the last part full) -- at K = 0, 1 and 3, on contiguous
+    planes and on planes whose plane stride is no multiple of 4 lanes: equal
+    to mont_chain_plain, one launch a call."""
+    from zklaim_tpu_torch.tools import mont_micro
+
+    sms = K.sm_count(cuda)
+    for n, threads in ((1023, 32), (1024 + 77, 32), (mont_micro.WIDE_LANES + 77, 256)):
+        assert mont_micro.chain_threads(n, sms) == threads
+        x = mont_micro.probe_input(n, cuda)
+        wider = torch.zeros((16, n + 3), dtype=torch.int32, device=cuda)
+        wider[:, :n] = x
+        for planes in (x, wider[:, :n]):
+            for k in (0, 1, 3):
+                before = K.LAUNCHES["mont_chain"]
+                got = mont_micro.mont_chain(planes, k)
+                torch.cuda.synchronize()
+                assert K.LAUNCHES["mont_chain"] == before + 1
+                assert max_abs_err(got, mont_micro.mont_chain_plain(x, k)) == 0, (n, k,
+                                                                                   planes.stride())
 
 
 def test_point_add_tiled_at_every_tile_on_a_ragged_n(cuda):

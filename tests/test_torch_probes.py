@@ -33,11 +33,11 @@ from zklaim_tpu_torch.ec import curve as C
 from zklaim_tpu_torch.ec.gpu_curve import point_add_plain
 from zklaim_tpu_torch.ff.montgomery import FQ
 from zklaim_tpu_torch.ff.params import Q
-from zklaim_tpu_torch.kernels import KERNELS, PROBE_KERNELS
+from zklaim_tpu_torch.kernels import KERNELS, PROBE_KERNELS, SOURCES
 from zklaim_tpu_torch.kernels.cases import (
     LANE_CLOCKS_PER_S, bound_ms, curve_inputs, max_abs_err, probe_cases, random_field, random_points,
 )
-from zklaim_tpu_torch.tools import grid_micro, mont_micro, padd_micro, pallas_op_micro
+from zklaim_tpu_torch.tools import grid_micro, mont_micro, mont_wide_ab, padd_micro, pallas_op_micro
 
 torch.set_num_threads(1)
 
@@ -152,6 +152,61 @@ def test_point_add_chain_threads_spread_lanes_over_the_sms():
             assert -(-n // t) <= 132, n
 
 
+def test_chain_threads_is_one_rule_with_the_cap_as_a_parameter():
+    """K9's CTA size (padd_micro.chain_threads) and K6's (mont_micro.
+    chain_threads) are one rule, padd_micro.chain_threads, at their own caps,
+    each the __launch_bounds__ of its kernel in csrc/probes.cu."""
+    assert mont_micro.CHAIN_MAX_THREADS == _probes_define("MONT_CHAIN_MAX_THREADS") == 256
+    for n in (1, 33, 1024, 4225, 1 << 20):
+        assert padd_micro.chain_threads(n, 132) == padd_micro.chain_threads(n, 132, 256)
+        assert mont_micro.chain_threads(n, 132) == padd_micro.chain_threads(n, 132, 256)
+    assert padd_micro.chain_threads(1 << 20, 132, 128) == 128
+    assert padd_micro.chain_threads(4225, 132, 64) == 64
+
+
+@pytest.mark.parametrize("n", [1, 31, 33, 1023, 1024, 1101, 4224, 20000, 1 << 20,
+                               1081344, 1081344 + 77])
+def test_mont_chain_plan_spreads_lanes_over_the_sms(n):
+    """K6's launch: 1,024 lanes on 132 SMs go to 32 CTAs of one warp, one an
+    SM; the card-filling width to 4,224 CTAs of 256 threads (8 an SM, every
+    warp an SM holds at the kernel's 32 registers).  On 1, 7, 114 and 132
+    SMs a CTA is whole warps, while a CTA is below the cap the CTAs never
+    outnumber the SMs, and the kernel's walk -- CTA c, thread t runs lane
+    c threads + t where that is below n, in zk_mont_chain's ceil(n /
+    threads) CTAs -- names every lane exactly once: part-full last CTAs and
+    CTAs of one warp included."""
+    assert mont_micro.chain_threads(mont_micro.LANES, 132) == 32
+    assert mont_micro.chain_threads(mont_micro.WIDE_LANES, 132) == 256
+    assert mont_micro.WIDE_LANES // 256 == 4224 == 8 * 132 * 4
+    for sms in (1, 7, 114, 132):
+        threads = mont_micro.chain_threads(n, sms)
+        ctas = -(-n // threads)
+        assert threads % 32 == 0 and 32 <= threads <= 256, (n, sms)
+        if threads < 256:
+            assert ctas <= sms, (n, sms)
+        lanes = (np.arange(ctas)[:, None] * threads + np.arange(threads)).ravel()
+        lanes = lanes[lanes < n]
+        assert len(lanes) == n and (np.bincount(lanes, minlength=n) == 1).all(), (n, sms)
+
+
+def test_mont_wide_ab_names_the_variants_of_its_source():
+    """tools/mont_wide_ab.py's VARIANTS are csrc/mont_wide_variants.cu's, in
+    the order of the source's header list and of its VARIANTS[] table; the
+    source is built on its own, not into the kernel library; every product
+    in it is K6's step, a squaring by fe_mul<ZK_FQ>; and the tool refuses
+    the CPU."""
+    src = mont_wide_ab.SOURCE.read_text()
+    listed = [(int(i), name) for i, name in re.findall(r"^//\s+(\d+) (\w+)\s", src, re.M)]
+    assert listed == list(enumerate(mont_wide_ab.VARIANTS))
+    table = re.search(r"const Variant VARIANTS\[\] = \{(.*?)\n\};", src, re.S).group(1)
+    assert len(re.findall(r"\{\w+(?:<\w+>)?, \d, \d\}", table)) == len(mont_wide_ab.VARIANTS)
+    assert mont_wide_ab.SOURCE.name not in SOURCES
+    squarings = re.findall(r"fe_mul<ZK_FQ>\(([\w\[\]]+), \1\)", src)
+    assert squarings and len(squarings) == src.count("fe_mul")
+    with pytest.raises(RuntimeError):
+        mont_wide_ab.measure("cpu", 1)
+
+
 def _numpy_op(op: str, v: np.ndarray, k: int) -> np.ndarray:
     """tools/pallas_op_micro.py:18-25 in numpy, k steps."""
     with np.errstate(over="ignore"):
@@ -206,11 +261,14 @@ def test_op_chain_rejects_wrong_types():
 def test_probe_cases_cover_k6_to_k9_and_agree_on_the_cpu():
     """The case list chip_smoke.py and the card tests run, rehearsed on the
     CPU (both sides are then the plain version): every probe kernel has a
-    case, each is bound to its own inputs, and the bound is positive."""
-    cases = probe_cases("cpu", np.random.default_rng(0), k_mont=2, k_op=3, k_add=1, n_tiled=16,
-                        wide_lanes=24, n_ragged=21)
+    case, each is bound to its own inputs, and the bound is positive; K6
+    also on ragged lane counts on both sides of its plans."""
+    cases = probe_cases("cpu", np.random.default_rng(0), k_mont=2, k_op=3, k_op_long=4, k_add=1,
+                        n_tiled=16, wide_lanes=24, n_ragged=21)
     assert [c.label for c in cases if c.kernel == "mont_chain"] == [
-        "K6 mont_chain Fq lanes=1024 K=2", "K6 mont_chain Fq lanes=24 K=2"]
+        "K6 mont_chain Fq lanes=1024 K=2", "K6 mont_chain Fq lanes=24 K=2",
+        "K6 mont_chain Fq lanes=1023 K=3 (ragged)", "K6 mont_chain Fq lanes=1101 K=3 (ragged)",
+        "K6 mont_chain Fq lanes=101 K=3 (ragged)"]
     assert {c.kernel for c in cases} == set(PROBE_KERNELS) <= set(KERNELS)
     labels = [c.label for c in cases]
     assert len(set(labels)) == len(labels)
@@ -220,7 +278,7 @@ def test_probe_cases_cover_k6_to_k9_and_agree_on_the_cpu():
         ms, by = bound_ms(case)
         assert ms > 0 and by in ("bytes", "operations")
     # a chain of k products is bound by operations, not by its 128 bytes a lane
-    long_chain = probe_cases("cpu", np.random.default_rng(0), k_mont=512, n_tiled=16,
+    long_chain = probe_cases("cpu", np.random.default_rng(0), k_mont=512, k_op_long=1, n_tiled=16,
                              wide_lanes=8, n_ragged=9)[0]
     assert bound_ms(long_chain)[1] == "operations"
     assert bound_ms(long_chain, mad_per_s=1e12)[0] > bound_ms(long_chain)[0]
@@ -228,11 +286,40 @@ def test_probe_cases_cover_k6_to_k9_and_agree_on_the_cpu():
     # two a step for the integer ops, one for f32fma
     k, n = pallas_op_micro.CHAIN[1], pallas_op_micro.ROWS * pallas_op_micro.COLS
     by_op = {c.label.split()[2]: c for c in probe_cases("cpu", np.random.default_rng(0), k_mont=1,
-                                                        k_op=k, n_tiled=16, wide_lanes=8,
-                                                        n_ragged=9)
-             if c.kernel == "op_chain"}
+                                                        k_op=k, k_op_long=1, n_tiled=16,
+                                                        wide_lanes=8, n_ragged=9)
+             if c.kernel == "op_chain" and c.label.endswith(f"K={k}")}
     for op, per_step in (("u32mul", 2), ("u32add", 2), ("u16mul", 2), ("f32fma", 1)):
         assert bound_ms(by_op[op]) == (per_step * k * n / LANE_CLOCKS_PER_S * 1e3, "operations"), op
+
+
+def test_probe_cases_time_k7_at_its_working_chain_length_first():
+    """K7's first four cases -- chip_smoke.py's headline is a kernel's first
+    case -- run the four ops at the tool's chain length (here a small one
+    passed in; by default pallas_op_micro.CHAIN[0] = 20,000) on the original's
+    (16, 8192), their plain versions run once, and each is bound by
+    operations: at 20,000 steps 0.1565 ms for an integer op and 0.07825 for
+    f32fma.  The K = 16 cases follow on the same inputs."""
+    cases = [c for c in probe_cases("cpu", np.random.default_rng(0), k_mont=1, k_op=3, k_op_long=5,
+                                    n_tiled=16, wide_lanes=8, n_ragged=9)
+             if c.kernel == "op_chain"]
+    ops = ["u32mul", "u32add", "u16mul", "f32fma"]
+    assert [c.label for c in cases] == (
+        [f"K7 op_chain {op} (16, 8192) K=5" for op in ops]
+        + [f"K7 op_chain {op} (16, 8192) K=3" for op in ops])
+    assert [c.plain_once for c in cases] == [True] * 4 + [False] * 4
+    for long, short in zip(cases[:4], cases[4:]):
+        assert long.ops * 3 == short.ops * 5 and long.extra_bytes == short.extra_bytes
+        assert max_abs_err(long.run(), long.plain()) == 0, long.label
+    n = pallas_op_micro.ROWS * pallas_op_micro.COLS
+    default = [c for c in probe_cases("cpu", np.random.default_rng(0), k_mont=1, k_op=3,
+                                      n_tiled=16, wide_lanes=8, n_ragged=9)
+               if c.kernel == "op_chain"][:4]
+    for case, op in zip(default, ops):
+        assert case.label == f"K7 op_chain {op} (16, 8192) K={pallas_op_micro.CHAIN[0]}"
+        want = (1 if op == "f32fma" else 2) * 20000 * n / LANE_CLOCKS_PER_S * 1e3
+        assert bound_ms(case) == (want, "operations")
+        assert want == pytest.approx(0.07825 if op == "f32fma" else 0.15650, abs=1e-5)
 
 
 @pytest.mark.parametrize("tool", [mont_micro, pallas_op_micro, padd_micro])

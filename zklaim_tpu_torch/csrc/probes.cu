@@ -9,9 +9,29 @@
 // K6 mont_chain
 // Replaces: the kernel of tools/mont_micro.py:build(K) (launched at :22):
 // K chained Montgomery squarings v <- mont_mul(v, v) over Fq on (16, lanes)
-// planes.  Bound by 32-bit integer multiply-adds (136 a step), nothing
-// else: 128 bytes a lane move once.  The chain of one lane is serial, so
-// the rate needs enough lanes in flight to cover the multiply latency.
+// planes, each step the full fe_mul of field.cuh (no special squaring: K6
+// measures the product every other kernel runs).  136 32-bit multiply-adds a
+// step, 128 bytes a lane moved once.  One lane a thread; the wrapper
+// (tools/mont_micro.py:chain_threads, K9's rule at MONT_CHAIN_MAX_THREADS)
+// cuts the lanes into CTAs of as few warps as spread them over every SM:
+//  - at the original's 1,024 lanes: 32 CTAs of one warp on 32 SMs, where 4
+//    CTAs of 256 threads ran on 4 SMs with two warps a scheduler.  What
+//    bounds it is one warp's in-order issue of its dependent chain (a
+//    product is some 190 instructions, each waiting on a carry or an
+//    operand of the one before): a second warp on the scheduler only
+//    queued behind the first.
+//  - at the card's width: CTAs of MONT_CHAIN_MAX_THREADS, 8 an SM at the
+//    kernel's 32 registers, 64 warps an SM.  Bound by bytes at short chains
+//    (K = 2: 128 bytes a lane against two products, and the loads and
+//    stores of one lane a thread run near the card's copy rate) and by the
+//    product's issue at long ones, which wants every warp an SM holds.
+//    Overlapping the next lanes' loads with this lane's products (their
+//    rows staged in shared memory by cp.async, held in registers, or
+//    prefetched into L2) costs warps or memory time, and ran slower on the
+//    card than this launch at K = 2 and at K = 64 / 512; two or four lanes
+//    a thread gain a few per cent at K = 64 / 512 and lose more at K = 2
+//    (mont_wide_variants.cu holds every launch tried, and
+//    tools/mont_wide_ab.py times them against this kernel).
 //
 // K7 op_chain
 // Replaces: the kernel of tools/pallas_op_micro.py:build(op, K, dtype)
@@ -27,7 +47,12 @@
 // u16mul steps collapse into one multiply by 3^16 and one mask).  Bound by
 // the rate at which an SM starts that one instruction (plus the logic op
 // beside it).  f32fma is one fused multiply-add with one rounding
-// (__fmaf_rn), where the plain version rounds twice.
+// (__fmaf_rn), where the plain version rounds twice.  Its headline runs the
+// tool's shorter chain, K = 20,000, on the original's 131,072 elements (at
+// K = 16 a launch times little but itself): 512 CTAs of 256 threads, under
+// half of the 1,056 the card holds at once, so the busiest SMs set the
+// time: about 71 % of the issue bound, against 91 % at the width that fills
+// the card.
 //
 // K8 point_add_tiled
 // Replaces: the kernel of tools/grid_micro.py:build(tile) (launched at
@@ -50,7 +75,8 @@
 // K chained G1 adds pt <- pt + pt on (3, 16, lanes) planes, each the complete
 // rcb_add<1> (12 Fq products a step).  Bound by integer multiply-adds and,
 // at 1,024 lanes (32 warps), by the latency of one warp's dependent chain:
-// the wrapper (tools/padd_micro.py:chain_threads) cuts the lanes into CTAs
+// the wrapper (tools/padd_micro.py:chain_threads at CHAIN_MAX_THREADS, the
+// rule K6 shares) cuts the lanes into CTAs
 // of as few warps as spread them over the card's SMs, one warp a scheduler
 // (1,024 lanes: 32 CTAs of one warp on 32 SMs, where 8 CTAs of 128 threads
 // ran on 8), up to CHAIN_MAX_THREADS a CTA where lanes are many.
@@ -63,9 +89,11 @@
 // K6
 // ---------------------------------------------------------------------------
 
-__global__ void mont_chain_kernel(const int32_t* __restrict__ in, int64_t in_ls,
-                                  int32_t* __restrict__ out, int64_t out_ls,
-                                  int64_t n, int k) {
+#define MONT_CHAIN_MAX_THREADS 256
+
+__global__ void __launch_bounds__(MONT_CHAIN_MAX_THREADS)
+mont_chain_kernel(const int32_t* __restrict__ in, int64_t in_ls,
+                  int32_t* __restrict__ out, int64_t out_ls, int64_t n, int k) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   Fe v = fe_load(in, in_ls, 1, i);
@@ -75,10 +103,10 @@ __global__ void mont_chain_kernel(const int32_t* __restrict__ in, int64_t in_ls,
 }
 
 extern "C" int zk_mont_chain(const void* in, long long in_ls, void* out, long long out_ls,
-                             long long n, int k, void* stream) {
+                             long long n, int k, int threads, void* stream) {
   if (n <= 0) return 0;
-  if (k < 0) return (int)cudaErrorInvalidValue;
-  const int threads = 256;
+  if (k < 0 || threads <= 0 || threads > MONT_CHAIN_MAX_THREADS || threads % 32 != 0)
+    return (int)cudaErrorInvalidValue;
   const unsigned blocks = (unsigned)((n + threads - 1) / threads);
   mont_chain_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       (const int32_t*)in, in_ls, (int32_t*)out, out_ls, n, k);

@@ -59,7 +59,7 @@ KERNELS = {
     "msm_finish": ("zk_msm_finish", [_I, _P, _I64, _I64, _P, _I64, _I64, _P, _I64, _I64,
                                      _I, _I, _I, _P, _I, _I, _I]),
     # the probes of the measuring path (csrc/probes.cu)
-    "mont_chain": ("zk_mont_chain", [_P, _I64, _P, _I64, _I64, _I]),
+    "mont_chain": ("zk_mont_chain", [_P, _I64, _P, _I64, _I64, _I, _I]),
     "op_chain": ("zk_op_chain", [_I, _P, _P, _I64, _I]),
     "point_add_tiled": ("zk_point_add_tiled", [_P, _I64, _I64, _P, _I64, _I64, _P, _I64, _I64, _I64, _I64,
                                                _I]),
@@ -166,6 +166,11 @@ def launch(name: str, *args, device: torch.device) -> None:
     if rc != 0:
         raise RuntimeError(f"kernel {name} launch failed: CUDA error {rc}")
     LAUNCHES[name] += 1
+
+
+def sm_count(device: torch.device) -> int:
+    """The SMs of a CUDA device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def check_planes(t: torch.Tensor, what: str) -> None:

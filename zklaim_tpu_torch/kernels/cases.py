@@ -9,7 +9,10 @@ in float64, where it is exact, and rounds once to float32 as the fused
 multiply-add does.  The probes K6-K9 run at their originals' shapes and at
 small chain lengths K (the plain versions cannot run the originals' K of up
 to 120,000 steps); K6 also at the width that fills the card, the shape whose
-rate tools/mont_micro.py reports.  The three whole-loop entries run at the
+rate tools/mont_micro.py reports, and on ragged lane counts (a part-full
+last CTA; CTAs of one warp); K7 first at the tool's shorter chain, K = 20,000, whose
+plain version takes seconds, so that its headline times the kernel's work
+and not its launch.  The three whole-loop entries run at the
 credential path's shapes: mont_pow on 2^15 elements with e = p - 2 (the
 batched Fermat inversion of pk_to_bytes), msm_tails on the upsweep levels
 of a G1 pass of four sums (2^21 lanes) and of the G2 pass (2^20 lanes) at
@@ -37,7 +40,7 @@ half of its FP32 lanes, so the rate is taken as the FP32 peak of
 67 TFLOP/s, over 2 (an FMA counts as two operations), over 2 again:
 16.75e12 multiply-adds per second at the card's full 700 W limit.
 tools/mont_micro.py measures the rate the card sustains in Montgomery
-products (K6: about 5.0e12).  The bound keeps the assumed rate: a bound is
+products (K6: about 8.0e12).  The bound keeps the assumed rate: a bound is
 the least time ANY kernel could take, so it may not rest on a rate that one
 implementation reached -- a better product (fewer carry instructions, more
 products in flight) would beat a bound built on K6's rate.  chip_smoke.py
@@ -49,10 +52,12 @@ of 128 lanes, one instruction a lane a clock, which is the data sheet's
 67 TFLOP/s / 2 = 33.5e12 a second.  An integer step is two operations
 (the logic op and the add or multiply, which go to different pipes and so
 share nothing but the issue slots); an f32fma step is one.  tools/
-pallas_op_micro.py measured 15.2e12 integer steps a second (NVIDIA H100 80GB
-HBM3, 700.00 W), 91 % of this bound and more than INT32_MAD_PER_S would allow: that constant is kept for
-the Montgomery products alone.  K7's elements are 4 bytes, counted in
-`extra_bytes`.
+pallas_op_micro.py measures 15.1-15.3e12 integer steps a second at the width
+that fills the card, 91 % of this bound and more than INT32_MAD_PER_S would
+allow (that constant is kept for the Montgomery products alone), and
+11.9e12, 71 %, at the original's (16, 8192), whose 512 CTAs fill half a
+wave (NVIDIA H100 80GB HBM3, 700.00 W).  K7's elements are 4 bytes, counted
+in `extra_bytes`.
 """
 
 from __future__ import annotations
@@ -381,35 +386,49 @@ def loop_cases(device, rng: np.random.Generator, n_pow: int = 1 << 15,
 
 
 def probe_cases(device, rng: np.random.Generator, k_mont: int = 16, k_op: int = 16,
-                k_add: int = 5, n_tiled: int | None = None, wide_lanes: int | None = None,
-                k_wide: int = 2, n_ragged: int | None = None) -> list:
+                k_op_long: int | None = None, k_add: int = 5, n_tiled: int | None = None,
+                wide_lanes: int | None = None, k_wide: int = 2,
+                n_ragged: int | None = None) -> list:
     """The probes K6-K9 at their originals' shapes and small chain lengths,
-    K6 also at the card's width (wide_lanes, default mont_micro.WIDE_LANES),
-    K8 also on a ragged lane count at every tile (n_ragged, default 2^15 +
-    77: no tile divides it, and the last CTA of every tile is part full).
+    K6 also at the card's width (wide_lanes, default mont_micro.WIDE_LANES)
+    and at ragged lane counts (1,023 and 1,101 in CTAs of one warp,
+    wide_lanes + 77 in CTAs of 256; 3 steps), K7 first at the tool's own chain length
+    (k_op_long, default pallas_op_micro.CHAIN[0] = 20,000: its headline, where
+    the work and not the launch is timed; plain_once) and then at k_op, K8
+    also on a ragged lane count at every tile (n_ragged, default 2^15 + 77:
+    no tile divides it, and the last CTA of every tile is part full).
 
     Work of a call: K6 k products a lane; K7 k steps an element (see the
     module docstring); K8 as K4; K9 12 k products a lane."""
     from ..tools import grid_micro, mont_micro, padd_micro, pallas_op_micro
 
-    cases = []
-    for lanes, k in ((mont_micro.LANES, k_mont), (wide_lanes or mont_micro.WIDE_LANES, k_wide)):
-        base = random_field(FQ, min(lanes, 1 << 14), rng, device)      # tiled above 2^14 lanes
-        x = base.repeat(-(-lanes // base.shape[0]), 1)[:lanes].t().contiguous()
-        cases.append(Case("mont_chain", f"K6 mont_chain Fq lanes={lanes} K={k}",
+    def field_planes(base, lanes):          # (16, lanes): base's lanes tiled
+        return base.repeat(-(-lanes // base.shape[0]), 1)[:lanes].t().contiguous()
+
+    def mont(lanes, k, x, what=""):
+        cases.append(Case("mont_chain", f"K6 mont_chain Fq lanes={lanes} K={k}{what}",
                           lambda x=x, k=k: mont_micro.mont_chain(x, k),
                           lambda x=x, k=k: mont_micro.mont_chain_plain(x, k),
                           2 * lanes, k * lanes))
 
+    cases = []
+    lanes, wide = mont_micro.LANES, wide_lanes or mont_micro.WIDE_LANES
+    mont(lanes, k_mont, field_planes(random_field(FQ, lanes, rng, device), lanes))
+    wide_base = random_field(FQ, min(wide, 1 << 14), rng, device)      # tiled above 2^14 lanes
+    mont(wide, k_wide, field_planes(wide_base, wide))
+    for n in (lanes - 1, lanes + 77, wide + 77):            # ragged: a part-full last CTA
+        mont(n, 3, field_planes(wide_base, n), " (ragged)")
+
     rows, cols = pallas_op_micro.ROWS, pallas_op_micro.COLS
-    for op in ("u32mul", "u32add", "u16mul", "f32fma"):
-        fma = op == "f32fma"
-        v = pallas_op_micro.probe_input(op, cols, device, int(rng.integers(1 << 30)))
-        cases.append(Case("op_chain", f"K7 op_chain {op} ({rows}, {cols}) K={k_op}",
-                          lambda op=op, v=v: pallas_op_micro.op_chain(op, v, k_op),
-                          lambda op=op, v=v: pallas_op_micro.op_chain_plain(op, v, k_op),
-                          0, 0, ops=(1 if fma else 2) * k_op * v.numel(),
-                          extra_bytes=2 * 4 * v.numel()))
+    inputs = {op: pallas_op_micro.probe_input(op, cols, device, int(rng.integers(1 << 30)))
+              for op in ("u32mul", "u32add", "u16mul", "f32fma")}
+    for k, once in ((k_op_long or pallas_op_micro.CHAIN[0], True), (k_op, False)):
+        for op, v in inputs.items():
+            cases.append(Case("op_chain", f"K7 op_chain {op} ({rows}, {cols}) K={k}",
+                              lambda op=op, v=v, k=k: pallas_op_micro.op_chain(op, v, k),
+                              lambda op=op, v=v, k=k: pallas_op_micro.op_chain_plain(op, v, k),
+                              0, 0, ops=(1 if op == "f32fma" else 2) * k * v.numel(),
+                              extra_bytes=2 * 4 * v.numel(), plain_once=once))
 
     def tiled(n, what):
         p, q = curve_inputs(1, n, rng, device)

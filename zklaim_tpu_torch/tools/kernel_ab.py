@@ -13,18 +13,22 @@ kernel process times every case of kernels/cases.py:kernel_cases (seed
 runs the four probes' measure(), and times K6, K9 and K7's u32mul on one
 warp alone (32 lanes, chain lengths differenced): the latency of one
 product, of one add step and of one step of two dependent instructions
-(LOP3, IMAD) with nothing beside them.  The worker uses only what
-both trees have.  Labels are matched with K8's " threads=..." taken off.
+(LOP3, IMAD) with nothing beside them.  It also times, under labels that
+start "both trees:", K6 on ragged lane counts (1,023, 1,101 and
+mont_micro.WIDE_LANES + 77, K = 3) and K7's four ops at the tool's chain
+length (pallas_op_micro.CHAIN[0]), which a tree's case list may lack.  The
+worker uses only what both trees have.  Labels are matched with K8's
+" threads=..." taken off.
 
 Then cuobjdump -sass of each tree's library: for mont_chain_kernel (K6:
 one product a loop step) and point_add_chain_kernel (K9: one complete G1
 add a step) the loop body's instruction count, its IMAD-class count
 (IMAD, IMAD.WIDE, IMAD.HI, IMAD.X, ...) and its critical path, the longest
 chain of instructions each reading what the one before wrote (registers,
-predicates: the carries).  K9's latency floor is its critical path times
-the latency of one dependent integer instruction: K7's u32mul step on one
-warp over the critical path of one of its steps (its loop, 16 steps
-unrolled, read the same way: 2 a step).
+predicates: the carries).  K6's and K9's latency floors are their critical
+paths times the latency of one dependent integer instruction: K7's u32mul
+step on one warp over the critical path of one of its steps (its loop, 16
+steps unrolled, read the same way: 2 a step).
 
 The record is printed as one JSON line and written to --out (default
 build/kernel_ab.json); a table of the cases goes to stdout.  Needs a card.
@@ -66,6 +70,15 @@ for c in kernel_cases(dev, seed=seed):
     else:
         out["cases"][c.label] = device_ms(c.run)
 if mode != "plain":
+    for lanes in (1023, 1101, mont_micro.WIDE_LANES + 77):
+        x = mont_micro.probe_input(lanes, dev)
+        out["cases"][f"both trees: K6 mont_chain lanes={lanes} K=3"] = \
+            device_ms(lambda: mont_micro.mont_chain(x, 3))
+    for op in pallas_op_micro.OPS:
+        v = pallas_op_micro.probe_input(op, pallas_op_micro.COLS, dev)
+        k = pallas_op_micro.CHAIN[0]
+        out["cases"][f"both trees: K7 op_chain {op} ({v.shape[0]}, {v.shape[1]}) K={k}"] = \
+            device_ms(lambda: pallas_op_micro.op_chain(op, v, k))
     for tool in (mont_micro, pallas_op_micro, grid_micro, padd_micro):
         out["probes"] += tool.measure(dev)
     x = mont_micro.probe_input(32, dev)
@@ -217,8 +230,8 @@ def measure(other: Path) -> dict:
                 for name in rec["one_warp_us_per_step"][keys[0]]}
         per_dep_ns = best["op_chain u32mul"] * 1e3 / (sass["op_chain_kernelILi0"]["critical_path"] / 16)
         sass["ns_per_dependent_instruction"] = per_dep_ns
-        sass["k9_latency_floor_us_per_step"] = \
-            sass["point_add_chain_kernel"]["critical_path"] * per_dep_ns / 1e3
+        for kernel, key in (("mont_chain_kernel", "k6"), ("point_add_chain_kernel", "k9")):
+            sass[f"{key}_latency_floor_us_per_step"] = sass[kernel]["critical_path"] * per_dep_ns / 1e3
         sass["one_warp_us_per_step"] = best
     return rec
 

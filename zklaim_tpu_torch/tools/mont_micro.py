@@ -5,10 +5,11 @@ Counterpart of tools/mont_micro.py.  K6 runs K chained squarings
 v <- mont_mul(v, v) over Fq with each lane's element held in registers (one
 load, one store), so (t(K2) - t(K1)) / (K2 - K1) is the cost of one product
 step with launch, load and store cancelled.  It is measured at the original's
-shape, (16, 1024) planes -- 8 warps, one SM's worth at most -- and at a
-width that fills the card, WIDE_LANES = 4 x 132 SMs x 2,048 threads: the
-second gives the product rate of the whole card, the number a bound on the
-other kernels' arithmetic should rest on.
+shape, (16, 1024) planes -- 32 warps, which K6 spreads over 32 SMs, one
+warp each -- and at a width that fills the card, WIDE_LANES = 4 x 132 SMs x
+2,048 threads, in CTAs of 256 threads, 8 an SM: the second gives the product
+rate of the whole card, the number a bound on the other kernels' arithmetic
+should rest on.  chain_threads gives the launch.
 
 Inputs are residues below p (the original draws raw 16-bit limbs, which may
 exceed p; there its multiply and this one agree only after the first step).
@@ -32,12 +33,24 @@ from ..ff import montgomery as M
 from ..ff.montgomery import FQ
 from ..kernels.cases import MADS_PER_PRODUCT, random_field
 from ..utils.profiling import best_ms, card_label
+from . import padd_micro
 
 LANES = 1024
 WIDE_LANES = 4 * 132 * 2048
 CHAIN = (64, 512)
 CHAIN_CPU = (2, 6)
 SEED = 0
+
+CHAIN_MAX_THREADS = 256      # csrc/probes.cu's MONT_CHAIN_MAX_THREADS, its __launch_bounds__
+
+
+def chain_threads(n: int, sms: int) -> int:
+    """Threads of K6's CTA for n lanes on a card of `sms` SMs, one lane a
+    thread: padd_micro.chain_threads, K9's rule, at K6's cap.  1,024 lanes
+    at 132 SMs: CTAs of one warp, 32 of them; WIDE_LANES: CTAs of 256,
+    4,224 of them, 8 an SM.  The launcher (csrc/probes.cu:zk_mont_chain)
+    cuts the lanes into ceil(n / threads) CTAs."""
+    return padd_micro.chain_threads(n, sms, CHAIN_MAX_THREADS)
 
 
 def mont_chain_plain(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -50,17 +63,19 @@ def mont_chain_plain(x: torch.Tensor, k: int) -> torch.Tensor:
 
 def mont_chain(x: torch.Tensor, k: int) -> torch.Tensor:
     """k chained Montgomery squarings of every lane of (16, n) Fq planes
-    (canonical limbs): one K6 launch on CUDA, the plain version on the CPU."""
+    (canonical limbs): one K6 launch on CUDA in CTAs of chain_threads' size,
+    the plain version on the CPU."""
     if not x.is_cuda:
         return mont_chain_plain(x, k)
     dev = K.launch_device("mont_chain", x)
     if x.dim() != 2 or x.shape[0] != 16 or (x.shape[1] > 1 and x.stride(1) != 1) or k < 0:
         raise ValueError(f"mont_chain: expected (16, n) planes with unit element stride and "
                          f"k >= 0, got shape {tuple(x.shape)} strides {x.stride()} k {k}")
-    out = torch.empty((16, x.shape[1]), dtype=torch.int32, device=dev)
-    if x.shape[1]:
-        K.launch("mont_chain", x.data_ptr(), x.stride(0), out.data_ptr(), out.stride(0),
-                 x.shape[1], k, device=dev)
+    n = x.shape[1]
+    out = torch.empty((16, n), dtype=torch.int32, device=dev)
+    if n:
+        K.launch("mont_chain", x.data_ptr(), x.stride(0), out.data_ptr(), out.stride(0), n, k,
+                 chain_threads(n, K.sm_count(dev)), device=dev)
     return out
 
 

@@ -40,12 +40,14 @@ SEED = 0
 CHAIN_MAX_THREADS = 256          # csrc/probes.cu's CHAIN_MAX_THREADS, its __launch_bounds__
 
 
-def chain_threads(n: int, sms: int) -> int:
-    """Threads of K9's CTA for n lanes on a card of `sms` SMs: the fewest
-    warps a CTA that put every lane on one of the SMs, at most
-    CHAIN_MAX_THREADS."""
+def chain_threads(n: int, sms: int, cap: int = CHAIN_MAX_THREADS) -> int:
+    """Threads a CTA for a chain probe's n lanes, one lane a thread, on a card
+    of `sms` SMs: the fewest whole warps a CTA that put every lane on one of
+    at most `sms` CTAs, one CTA an SM, and at most `cap` threads (the
+    kernel's __launch_bounds__) where the lanes are more.  K9's rule at its
+    own cap; K6 (mont_micro.chain_threads) runs by it at its own."""
     warps = -(-n // 32)
-    return 32 * max(1, min(-(-warps // sms), CHAIN_MAX_THREADS // 32))
+    return 32 * max(1, min(-(-warps // sms), cap // 32))
 
 
 def point_add_chain_plain(p: torch.Tensor, k: int) -> torch.Tensor:
@@ -68,10 +70,9 @@ def point_add_chain(p: torch.Tensor, k: int) -> torch.Tensor:
     n = p.shape[2]
     out = torch.empty((3, 16, n), dtype=torch.int32, device=dev)
     if n:
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
         K.launch("point_add_chain", p.data_ptr(), p.stride(0), p.stride(1),
-                 out.data_ptr(), out.stride(0), out.stride(1), n, k, chain_threads(n, sms),
-                 device=dev)
+                 out.data_ptr(), out.stride(0), out.stride(1), n, k,
+                 chain_threads(n, K.sm_count(dev)), device=dev)
     return out
 
 
@@ -86,7 +87,7 @@ def measure(device, widths=(LANES, WIDE_LANES)) -> list:
     """One row per width: the differenced cost of an add step."""
     device = torch.device(device)
     k1, k2 = CHAIN if device.type == "cuda" else CHAIN_CPU
-    sms = torch.cuda.get_device_properties(device).multi_processor_count if device.type == "cuda" else 0
+    sms = K.sm_count(device) if device.type == "cuda" else 0
     rows = []
     for lanes in widths:
         p = probe_input(lanes, device)

@@ -53,12 +53,24 @@
    For each of the two paths the launch counts are set to 0 just before and
    read just after.  A proof must launch mont_mul, ntt_local, ntt_stage,
    point_add, msm_tails and msm_finish and no point_double; a
-   proof_generate on an imported pk exactly 2 msm_finish (one a finish),
-   3 msm_tails (one a pass: two G1 chunks and the G2 sum), 7 ntt_local and
-   7 ntt_stage (one each a transform: K2 gathers the transform's rows
-   itself) and 87 point_add (the upsweeps, Abel trees and chunk sums);
-   the credential path's trusted_setup must launch mont_pow, once a batched
-   inversion.
+   proof_generate on an imported pk exactly what _proof_launches derives
+   from the key's dimensions, which for ZKlaimCircuit(1) must be 2
+   msm_finish (one a finish), 3 msm_tails (one a pass: two G1 chunks and
+   the G2 sum), 7 ntt_local and 7 ntt_stage (one each a transform: K2
+   gathers the transform's rows itself) and 87 point_add (the upsweeps,
+   Abel trees and chunk sums); the credential path's trusted_setup must
+   launch mont_pow, once a batched inversion.  The pk, vk and proof sizes
+   must equal SWEEP.csv's row for one payload.
+5b. The same path at the reference benchmark's width, ZKlaimCircuit(20)
+   (zklaim/main_benchmark.c's MAX_PL: 508,203 variables, m = 2^20, a 229.7
+   MB proving key), one holder, every failure status (the references and
+   predicates of payload 0 and of the last payload tampered with): the
+   byte sizes must equal SWEEP.csv's row for 20 payloads, a proof_generate
+   on an imported pk must launch what _proof_launches derives (80
+   msm_tails: 64 G1 chunks and 16 G2; 14 ntt_stage: two K3 passes a
+   transform of 2^20), trusted_setup mont_pow.  Prints each role's
+   seconds, the pk import's, the peak device memory and the launches beside
+   phase 5's.
 6. Holds the card against the CPU on the small circuit: the same seed must
    give the same proving key, verifying key and proof on both devices, as
    tensors and as serde bytes, and pk_from_bytes(pk_to_bytes(pk)) must
@@ -96,6 +108,7 @@ non-zero.  The full record goes to build/chip_smoke.json.
 
 from __future__ import annotations
 
+import csv
 import json
 import random
 import re
@@ -105,6 +118,7 @@ import time
 from pathlib import Path
 
 SEED = 20261016
+MAX_PL = 20        # zklaim/main_benchmark.c: the reference benchmark sweeps 1 ... MAX_PL payloads
 
 KERNEL_ROWS = {
     "mont_mul": ("zklaim_tpu_torch/csrc/mont_mul.cu", "zklaim_tpu/ntt/pallas_ntt.py:63"),
@@ -169,6 +183,51 @@ def _require_not_launched(launches: dict, path: str, kernels) -> None:
         raise AssertionError(f"kernels that {path} must not launch: {ran}")
 
 
+def _sweep_sizes(num_payloads: int) -> dict:
+    """pk_B, vk_B and proof_B of SWEEP.csv's row for `num_payloads` (the JAX
+    package's run of the reference's sweep: byte formats, the same on any
+    device)."""
+    with open(Path(__file__).resolve().parent / "SWEEP.csv", newline="") as fh:
+        for row in csv.DictReader(fh):
+            if int(row["num_payloads"]) == num_payloads:
+                return {k: int(row[k]) for k in ("pk_B", "vk_B", "proof_B")}
+    raise AssertionError(f"SWEEP.csv has no row for {num_payloads} payloads")
+
+
+def _proof_launches(num_vars: int, num_primary: int, m: int, c: int = 8) -> dict:
+    """The launches of one proof_generate on an imported pk, derived from the
+    key's dimensions.  The sums (msm/pippenger.py:msm_many): the four G1 sums
+    A, B1 (num_vars points), H (m - 1) and L (num_vars - num_primary - 1) as
+    one batch, the G2 sum (num_vars) alone; k sums pad to k2, a power of two,
+    and their points to n2, the next power of two, or, past chunk =
+    MAX_LANES[deg] / (k2 W) points, to whole chunks, one pass each.  A pass
+    of L lanes launches msm_tails once and point_add once an upsweep level
+    (log2 L) and once a level of the Abel tree (c - 1); a sum in chunks adds
+    two point_add a chunk (tot and head); each sum finishes in one
+    msm_finish.  The transforms (groth16/qap.py:h_coefficients): seven of m,
+    each one ntt_local and one ntt_stage a pass of gpu_ntt.global_passes."""
+    from zklaim_tpu_torch.msm.pippenger import MAX_LANES
+    from zklaim_tpu_torch.ntt.gpu_ntt import global_passes
+
+    W = 256 // c
+    out = {"msm_finish": 0, "msm_tails": 0, "point_add": 0}
+    for deg, lengths in ((1, (num_vars, num_vars, m - 1, num_vars - num_primary - 1)),
+                         (2, (num_vars,))):
+        k2 = 1 << (len(lengths) - 1).bit_length()
+        chunk = max(1, MAX_LANES[deg] // (k2 * W))
+        n = max(lengths)
+        n2 = max(2, 1 << (n - 1).bit_length())
+        passes, width = (1, n2) if n2 <= chunk else (-(-n // chunk), chunk)
+        lanes = k2 * W * width
+        out["msm_finish"] += 1
+        out["msm_tails"] += passes
+        sums = 2 * passes if passes > 1 else 0
+        out["point_add"] += passes * (lanes.bit_length() - 1 + c - 1) + sums
+    out["ntt_local"] = 7
+    out["ntt_stage"] = 7 * len(global_passes(m))
+    return out
+
+
 def _ptxas_table(ptxas: str) -> dict:
     """{entry: {"registers", "stack", "spill_stores", "spill_loads"}} of every
     kernel ptxas compiled."""
@@ -196,6 +255,68 @@ def _kernel_name(entry: str) -> str:
         return entry
     name = entry[m.end() : m.end() + int(m[1])]
     return f"{name} ({entry})" if entry[m.end() + int(m[1]) :].startswith("I") else name
+
+
+def _check_credential(res: dict, what: str) -> None:
+    """The checks phases 5 and 5b hold a run_credential_path result to: every
+    status as expected, the byte sizes SWEEP.csv's, a proof_generate on an
+    imported pk launching what _proof_launches derives from the key's
+    dimensions, the path's kernels launched over the path and point_double
+    not, trusted_setup launching mont_pow."""
+    from zklaim_tpu_torch import kernels as K
+
+    if not res["statuses_ok"]:
+        raise AssertionError(f"{what}: status codes {res['status']} != expected {res['expected']}")
+    sizes = {"pk_B": res["pk_bytes"], "vk_B": res["vk_bytes"], "proof_B": res["proof_bytes"]}
+    if sizes != _sweep_sizes(res["num_payloads"]):
+        raise AssertionError(f"{what}: byte sizes {sizes} != SWEEP.csv's "
+                             f"{_sweep_sizes(res['num_payloads'])}")
+    got = {k: res["reprove_launches"][k] for k in res["derived_proof_launches"]}
+    if got != res["derived_proof_launches"]:
+        raise AssertionError(f"{what}: proof_generate on an imported pk launched {got}, "
+                             f"derived {res['derived_proof_launches']}")
+    _require_launched(res["launches"], what, K.PATH_KERNELS)
+    _require_not_launched(res["launches"], what, ("point_double",))
+    _require_launched(res["trusted_setup_launches"], f"{what}'s trusted_setup", ("mont_pow",))
+
+
+def _wide_credential_phase(dev, card: str, narrow: dict) -> dict:
+    """Phase 5b: entry.run_credential_path on ZKlaimCircuit(MAX_PL), one
+    holder, every failure status (payload 0 and the last one tampered
+    with); each figure printed beside phase 5's (`narrow`, ZKlaimCircuit(1)),
+    then held by _check_credential.  The launch counts are set to 0 before
+    the phase and read after it."""
+    import torch
+
+    from zklaim_tpu_torch import kernels as K
+    from zklaim_tpu_torch.entry import run_credential_path
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    res = run_credential_path(dev, num_payloads=MAX_PL, requests=1, seed=SEED)
+    torch.cuda.synchronize()
+    res["phase_s"] = time.perf_counter() - t0
+    res["launches"] = dict(K.LAUNCHES)
+    res["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    res["derived_proof_launches"] = _proof_launches(res["num_vars"], res["num_primary"], res["m"])
+    print(f"[{card}] run_credential_path ZKlaimCircuit({MAX_PL}), 1 holder: "
+          f"{res['num_vars']} variables, {res['num_primary']} primary, m = {res['m']}; "
+          f"phase {res['phase_s']:.3f} s; beside it ZKlaimCircuit(1) (phase 5) in brackets")
+    for key in ("issuer_s", "trusted_setup_s", "pk_import_s", "reprove_s"):
+        print(f"[{card}]   {key} {res[key]:.3f} s [{narrow[key]:.3f}]")
+    for key in ("holder_s", "proof_generate_s", "verifier_s"):
+        print(f"[{card}]   {key} {res[key][0]:.3f} s [{narrow[key][0]:.3f}]")
+    for key in ("pk_bytes", "vk_bytes", "proof_bytes", "peak_mem_bytes"):
+        print(f"[{card}]   {key} {res[key]} B [{narrow[key]}]")
+    for key in ("launches", "trusted_setup_launches", "reprove_launches", "pk_import_launches"):
+        print(f"[{card}]   {key} " + ", ".join(f"{k} {res[key][k]} [{narrow[key][k]}]"
+                                              for k in K.PATH_KERNELS))
+    print(f"[{card}]   proof_generate on an imported pk, derived "
+          f"{res['derived_proof_launches']}", flush=True)
+    _check_credential(res, f"run_credential_path ZKlaimCircuit({MAX_PL})")
+    return res
 
 
 def _multi_device_phase(dev, card: str, credential) -> dict:
@@ -557,26 +678,31 @@ def main() -> None:
           f"{cred['proof_generate_launches'][-1]}; proof_generate on an imported pk "
           f"{cred['reprove_launches']}; pk import {cred['pk_import_launches']}")
     print(f"[{card}] status codes {cred['status']}", flush=True)
-    if not cred["statuses_ok"]:
-        raise AssertionError(f"status codes {cred['status']} != expected {cred['expected']}")
+    # one msm_finish a finish, one msm_tails a pass, one ntt_stage a transform
+    cred["derived_proof_launches"] = _proof_launches(cred["num_vars"], cred["num_primary"],
+                                                     cred["m"])
+    if cred["derived_proof_launches"] != {"msm_finish": 2, "msm_tails": 3, "ntt_local": 7,
+                                          "ntt_stage": 7, "point_add": 87}:
+        raise AssertionError(f"ZKlaimCircuit(1): the derived launches "
+                             f"{cred['derived_proof_launches']} moved")
+    _check_credential(cred, "run_credential_path")
     if cred["status"]["verify"] != [0, 0, 0]:
         raise AssertionError(f"three verified proofs expected: {cred['status']['verify']}")
-    _require_launched(launches, "run_credential_path", K.PATH_KERNELS)
     _require_launched(cred["reprove_launches"], "proof_generate", K.PROOF_KERNELS)
-    _require_launched(cred["trusted_setup_launches"], "trusted_setup", ("mont_pow",))
-    _require_not_launched(launches, "run_credential_path", ("point_double",))
     if cred["trusted_setup_launches"]["mont_mul"] > 100:
         raise AssertionError(f"trusted_setup: the inversions' squarings are mont_pow's now, yet "
                              f"mont_mul launched {cred['trusted_setup_launches']['mont_mul']} times")
-    # one msm_finish a finish, one msm_tails a pass, one ntt_stage a transform
-    per_proof = {"msm_finish": 2, "msm_tails": 3, "ntt_local": 7, "ntt_stage": 7, "point_add": 87}
-    got = {k: cred["reprove_launches"][k] for k in per_proof}
-    if got != per_proof:
-        raise AssertionError(f"proof_generate on an imported pk launched {got}, expected {per_proof}")
     for k in K.PATH_KERNELS + ("point_double",):
         rows[k]["launches"] = launches[k]
         rows[k]["launches_proof_generate"] = cred["reprove_launches"][k]
         rows[k]["launches_trusted_setup"] = cred["trusted_setup_launches"][k]
+
+    # -- 5b. the credential path at the reference benchmark's width: MAX_PL payloads
+    wide = _wide_credential_phase(dev, card, cred)
+    record["credential_path_n20"] = wide
+    for k in K.PATH_KERNELS:
+        rows[k]["launches_n20"] = wide["launches"][k]
+        rows[k]["launches_proof_generate_n20"] = wide["reprove_launches"][k]
 
     # -- 6. card vs CPU on the small circuit, as tensors and as bytes ---------
     cs, witness = tiny_circuit()

@@ -3,7 +3,8 @@
 zklaim_tpu_torch.{r1cs.system, gadgets.*, claims.circuit} are copies of
 the JAX package's modules with only their imports changed; here they must
 build the same constraint system (COO, variable counts) and the same
-witness as the originals, for ZKlaimCircuit(1) and the small circuit.
+witness as the originals, for ZKlaimCircuit(1), ZKlaimCircuit(2) and the
+small circuit.
 """
 
 import difflib
@@ -52,18 +53,37 @@ def _payload(seed):
     return pre, refs, ops
 
 
-def test_credential_circuit_matches_original():
-    old, new = JCirc.ZKlaimCircuit(1), TCirc.ZKlaimCircuit(1)
+def _make_pre(attrs, salt=0xDEADBEEF00C0FFEE):
+    return b"".join(int(v).to_bytes(8, "little") for v in list(attrs) + [salt])
+
+
+def _two_payloads():
+    """The two payloads of tests/test_zklaim_circuit.py:test_two_payloads."""
+    return [
+        (_make_pre([25, 40000, 7, 7, 1]), [18, 50000, 7, 9, 99],
+         [JCirc.OP_GREATER_EQ, JCirc.OP_LESS, JCirc.OP_EQ, JCirc.OP_NOT_EQ, JCirc.OP_NOOP]),
+        (_make_pre([100, 200, 300, 400, 500]), [100, 100, 400, 400, 0],
+         [JCirc.OP_EQ, JCirc.OP_GREATER, JCirc.OP_LESS, JCirc.OP_LESS_EQ, JCirc.OP_NOOP]),
+    ]
+
+
+@pytest.mark.parametrize("num_payloads, counts", [(1, (25412, 6, 27629)),
+                                                  (2, (50822, 11, 55257))])
+def test_credential_circuit_matches_original(num_payloads, counts):
+    """Variables, primary inputs and constraints grow with the payload count
+    (N = 20, the reference benchmark's MAX_PL, runs on the card only)."""
+    old, new = JCirc.ZKlaimCircuit(num_payloads), TCirc.ZKlaimCircuit(num_payloads)
     _same_system(old.cs, new.cs)
-    assert (old.cs.num_vars, old.cs.num_primary, old.cs.num_constraints) == (25412, 6, 27629)
-    inputs = [_payload(3)]
+    assert (old.cs.num_vars, old.cs.num_primary, old.cs.num_constraints) == counts
+    inputs = [_payload(3)] if num_payloads == 1 else _two_payloads()
     wo, wn = old.witness(inputs), new.witness(inputs)
     np.testing.assert_array_equal(wo.to_plain_limbs(), wn.to_plain_limbs())
     assert list(wo) == list(wn)
-    assert new.cs.is_satisfied(wn)
+    assert new.cs.is_satisfied(wn), new.cs.first_unsatisfied(wn)
     assert old.public_inputs(inputs) == new.public_inputs(inputs)
-    h = hashlib.sha256(inputs[0][0]).digest()
-    assert TCirc.public_inputs_for([(h, *inputs[0][1:])]) == new.public_inputs(inputs)
+    assert [wn[v] for v in new.packed_vars] == new.public_inputs(inputs)
+    hashed = [(hashlib.sha256(pre).digest(), refs, ops) for pre, refs, ops in inputs]
+    assert TCirc.public_inputs_for(hashed) == new.public_inputs(inputs)
 
 
 def test_tiny_circuit_matches_graft_entry():

@@ -195,8 +195,26 @@ def test_zero_payload_flow_statuses(flow):
     assert st["payload_count_mismatch"] == ZKLAIM_ERROR
     assert (flow["vk_bytes"], flow["proof_bytes"]) == (8 + 64 + 3 * 128 + 64, 260)
     assert flow["pk_bytes"] == 20 + 3 * 64 + 2 * 128 + 64 * 2 + 128
+    assert (flow["num_vars"], flow["num_primary"], flow["m"]) == (1, 0, 1)
     assert flow["device"] == "cpu"
     assert all(v == 0 for v in flow["reprove_launches"].values())   # plain versions on the CPU
+
+
+def test_cli_bench_header_matches_jax_package():
+    """`cli bench` writes the reference benchmark's CSV (main_benchmark.c):
+    the port's header is the JAX package's, byte for byte.  With no payload
+    count to sweep, neither runs a setup."""
+    import io
+
+    from zklaim_tpu import cli as jax_cli
+    from zklaim_tpu_torch import cli
+
+    theirs, ours = io.StringIO(), io.StringIO()
+    jax_cli.bench(max_payloads=0, out=theirs)
+    cli.bench(max_payloads=0, out=ours, device="cpu")
+    assert ours.getvalue() == theirs.getvalue()
+    assert ours.getvalue().splitlines() == [
+        "timestamp,num_payloads,issuer_ms,prover_ms,verifier_ms,pk_B,vk_B,proof_B"]
 
 
 def test_unsatisfied_predicate_is_an_error_status():

@@ -91,15 +91,61 @@ def test_g2_msm_matches_host():
     assert C.planes_to_host_points(2, got)[0] == _host_sum(pts, sc)
 
 
-def test_msm_many_padding_and_chunks_match_host():
-    """Three sums of 20, 9 and 5 points: k pads to 4 with an empty sum,
-    every point axis to 24 = 3 chunks of 8, whose window partials are
-    summed before one finish that runs the sums side by side."""
-    cases = [_case(g1_generator, n, 70 + n) for n in (20, 9, 5)]
+@pytest.mark.parametrize("lengths, seeds, chunk", [((20, 9, 5), (90, 79, 75), 8),
+                                                    ((16, 16, 31, 15), (90, 91, 92, 93), 4)])
+def test_msm_many_padding_and_chunks_match_host(lengths, seeds, chunk):
+    """Sums of unequal lengths: k pads to a power of two (three sums of 20,
+    9 and 5 points: 4, with an empty sum), every point axis to whole
+    chunks (24 = 3 chunks of 8), whose window partials are summed before
+    one finish that runs the sums side by side.  The second case is the
+    prover's four G1 sums at N = 20 in miniature: A, B1 and L about half as
+    long as H (508,203 points against 2^20 - 1), so three of the four point
+    axes are half infinity padding, in 8 chunks (64 at N = 20)."""
+    cases = [_case(g1_generator, n, seed) for n, seed in zip(lengths, seeds)]
     pairs = [(_rows(1, pts), _scalars(sc)) for pts, sc in cases]
-    got = TP.msm_many(1, pairs, 4, chunk=8)
-    assert got.shape == (3, 16, 3)
+    got = TP.msm_many(1, pairs, 4, chunk=chunk)
+    assert got.shape == (3, 16, len(lengths))
     assert C.planes_to_host_points(1, got) == [_host_sum(pts, sc) for pts, sc in cases]
+
+
+@pytest.mark.parametrize("max_lanes", [{1: 1 << 9, 2: 1 << 8}, {1: 1 << 14, 2: 1 << 13}])
+def test_chip_smoke_launch_rule_matches_prove_sums(monkeypatch, max_lanes):
+    """chip_smoke._proof_launches derives a proof's msm_tails, msm_finish
+    and point_add launches from the key's dimensions; the prover's sums
+    (groth16.api.prove_sums) make that many calls of the launching
+    functions.  The functions are stubbed with shape-only stand-ins, so
+    only the pipeline's control flow runs: with small MAX_LANES both sums
+    run in chunks (G1 16 passes, G2 5), with large ones in one pass each."""
+    import chip_smoke
+    from zklaim_tpu_torch.groth16.api import ProvingKey, prove_sums
+
+    calls = {"msm_tails": 0, "msm_finish": 0, "point_add": 0}
+
+    def count(name, fn):
+        def stub(*args):
+            calls[name] += 1
+            return fn(*args)
+        return stub
+
+    monkeypatch.setattr(TP, "point_add_halves",
+                        count("point_add", lambda deg, p: p[..., : p.shape[-1] // 2]))
+    monkeypatch.setattr(TP, "point_add_planes", count("point_add", lambda deg, a, b: a))
+    monkeypatch.setattr(TP, "_tails", count(
+        "msm_tails", lambda deg, levels, m, nb: C.infinity_planes(deg, m.shape[0], "cpu")))
+    monkeypatch.setattr(TP, "_finish", count(
+        "msm_finish", lambda deg, tot, head, c, k: C.infinity_planes(deg, k, "cpu")))
+    for deg, lanes in max_lanes.items():
+        monkeypatch.setitem(TP.MAX_LANES, deg, lanes)
+    num_vars, num_primary, m = 40, 3, 64
+    rows = lambda n, deg: torch.zeros((n, 48 * deg), dtype=torch.int32)
+    pk = ProvingKey(num_vars, num_primary, m, *([None] * 5), rows(num_vars, 1),
+                    rows(num_vars, 1), rows(num_vars, 2), rows(m - 1, 1),
+                    rows(num_vars - num_primary - 1, 1))
+    w = _scalars([random.Random(5).randrange(R) for _ in range(num_vars)])
+    prove_sums(pk, w, _scalars([1] * (m - 1)))
+    want = chip_smoke._proof_launches(num_vars, num_primary, m)
+    assert calls == {k: want[k] for k in calls}
+    assert want["msm_tails"] == (21 if max_lanes[1] == 1 << 9 else 2)
 
 
 def test_fixed_base_matches_jax_projective():

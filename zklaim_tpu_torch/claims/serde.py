@@ -299,12 +299,17 @@ def pk_to_bytes(pk: ProvingKey, num_payloads: int) -> bytes:
     return b"".join(out)
 
 
+def pk_dims(raw: bytes) -> tuple[int, int, int, int]:
+    """(num_payloads, num_vars, num_primary, m) from a proving key's header."""
+    if len(raw) < 20 or raw[:4] != MAGIC_PK:
+        raise SerdeError("bad pk encoding")
+    return struct.unpack_from("<IIII", raw, 4)
+
+
 def pk_from_bytes(raw: bytes, device=None) -> tuple[ProvingKey, int]:
     """Parse and validate a proving key; its tables go to `device`
     (None: the card, default_device())."""
-    if len(raw) < 20 or raw[:4] != MAGIC_PK:
-        raise SerdeError("bad pk encoding")
-    num_payloads, num_vars, num_primary, m = struct.unpack_from("<IIII", raw, 4)
+    num_payloads, num_vars, num_primary, m = pk_dims(raw)
     n_aux = num_vars - num_primary - 1
     if num_primary >= num_vars or m < 1 or n_aux < 0:
         raise SerdeError("bad pk dimensions")

@@ -223,8 +223,11 @@ def _off_curve_pk(pk_bytes: bytes) -> bytes:
 def run_credential_path(device=None, num_payloads: int = 1, requests: int = 3,
                         seed: int = 0) -> dict:
     """Issuer -> `requests` holders -> verifier through claims.api.Context,
-    then the failures.  Returns times, byte sizes and every status code; the
-    caller asserts them (`statuses_ok` says whether all are as expected)."""
+    then the failures.  Returns times, byte sizes, the proving key's
+    dimensions (num_vars, num_primary, m) and every status code; the caller
+    asserts them (`statuses_ok` says whether all are as expected).  The
+    failures that tamper with a payload take payload 0 and, past one
+    payload, the last one too (keys ending in `_last`)."""
     import copy
 
     from .claims import serde, signing
@@ -271,6 +274,8 @@ def run_credential_path(device=None, num_payloads: int = 1, requests: int = 3,
         attrs.append(mine)
     out["issuer_s"] = time.perf_counter() - t0
     out["pk_bytes"], out["vk_bytes"] = len(pk_bytes), len(vk_bytes)
+    if pk_bytes:
+        _, out["num_vars"], out["num_primary"], out["m"] = serde.pk_dims(pk_bytes)
 
     # ===== holders: a fresh context each, the pk handed over out of band =====
     out["holder_s"], out["proof_generate_s"], out["proof_generate_launches"] = [], [], []
@@ -348,21 +353,24 @@ def run_credential_path(device=None, num_payloads: int = 1, requests: int = 3,
         extra.add_payload(Payload())
         status["payload_count_mismatch"] = extra.proof_generate(rng)
         expect["payload_count_mismatch"] = ZKLAIM_ERROR
+    tampered = {}                          # key suffix -> the payload tampered with
     if requests and num_payloads:
+        tampered = {"": 0, "_last": num_payloads - 1} if num_payloads > 1 else {"": 0}
+    for tag, at in tampered.items():
         ctx, _ = Context.deserialize(proven[-1], device)
-        ctx.payloads[0].data_ref[0] ^= 1                  # the proof binds the references
-        status["tampered_reference"] = ctx.verify()
-        expect["tampered_reference"] = ZKLAIM_INVALID_PROOF
-        ctx.payloads[0].hash_payload(rng)                 # rehash: the signed view changes
-        status["tampered_reference_rehashed"] = ctx.verify()
-        expect["tampered_reference_rehashed"] = ZKLAIM_INVALID_SIGNATURE
+        ctx.payloads[at].data_ref[0] ^= 1                 # the proof binds the references
+        status["tampered_reference" + tag] = ctx.verify()
+        expect["tampered_reference" + tag] = ZKLAIM_INVALID_PROOF
+        ctx.payloads[at].hash_payload(rng)                # rehash: the signed view changes
+        status["tampered_reference_rehashed" + tag] = ctx.verify()
+        expect["tampered_reference_rehashed" + tag] = ZKLAIM_INVALID_SIGNATURE
 
         unsat = copy.deepcopy(keep)                       # the last holder, preimages intact
-        first = unsat.payloads[0]
-        first.data_ref[0] = int.from_bytes(first.pre[:8], "little")
-        first.data_op[0] = ZkOp.LESS                      # attr < attr is false
-        status["unsatisfied_predicate"] = unsat.proof_generate(rng)
-        expect["unsatisfied_predicate"] = ZKLAIM_ERROR
+        pl = unsat.payloads[at]
+        pl.data_ref[0] = int.from_bytes(pl.pre[:8], "little")
+        pl.data_op[0] = ZkOp.LESS                         # attr < attr is false
+        status["unsatisfied_predicate" + tag] = unsat.proof_generate(rng)
+        expect["unsatisfied_predicate" + tag] = ZKLAIM_ERROR
 
     out["status"], out["expected"] = status, expect
     out["statuses_ok"] = status == expect

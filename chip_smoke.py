@@ -6,7 +6,8 @@
 1. Requires CUDA (exits non-zero without it) and prints the card's name
    and power limit.
 2. Builds the kernels K1-K9 and the whole-loop entries mont_pow (K1),
-   msm_tails (K4) and msm_finish (K5) from zklaim_tpu_torch/csrc with nvcc,
+   msm_upsweep, msm_tails and msm_abel (K4) and msm_finish (K5) from
+   zklaim_tpu_torch/csrc with nvcc,
    the sources side by side, and prints what ptxas says of every kernel
    (registers, stack, spill bytes) and one line a kernel with its
    registers; a stack frame or a spill in any kernel fails the run.  K2's
@@ -20,7 +21,7 @@
    padd_micro: kernels K6-K9), each at its original's shape and at a width that
    fills the card; K6's wide row is the 32-bit multiply-add rate the card
    sustains.  K6-K9 must have launched.
-   Then holds each of the twelve entries against its plain PyTorch version
+   Then holds each of the fourteen entries against its plain PyTorch version
    on the card, at the shapes its path gives it (K6 also at the width that
    fills the card; K2 and K3 also on the four-step NTT's batches of
    transforms), limb for limb and, for K7's f32fma, bit for bit
@@ -52,14 +53,16 @@
    seconds, the byte sizes, the peak device memory and the launch counts.
    For each of the two paths the launch counts are set to 0 just before and
    read just after.  A proof must launch mont_mul, ntt_local, ntt_stage,
-   point_add, msm_tails and msm_finish and no point_double; a
-   proof_generate on an imported pk exactly what _proof_launches derives
-   from the key's dimensions, which for ZKlaimCircuit(1) must be 2
-   msm_finish (one a finish), 3 msm_tails (one a pass: two G1 chunks and
-   the G2 sum), 7 ntt_local and 7 ntt_stage (one each a transform: K2
-   gathers the transform's rows itself) and 87 point_add (the upsweeps,
-   Abel trees and chunk sums); the credential path's trusted_setup must
-   launch mont_pow, once a batched inversion.  The pk, vk and proof sizes
+   point_add, msm_upsweep, msm_tails, msm_abel and msm_finish and no
+   point_double; a proof_generate on an imported pk exactly what
+   _proof_launches derives from the key's dimensions, which for
+   ZKlaimCircuit(1) must be 2 msm_finish (one a finish), 3 msm_tails and
+   3 msm_abel (one each a pass: two G1 chunks and the G2 sum), 12
+   msm_upsweep (four a pass), 7 ntt_local and 7 ntt_stage (one each a
+   transform: K2 gathers the transform's rows itself) and 4 point_add (the
+   sums of the two G1 chunks: no pass adds through point_add); the
+   credential path's trusted_setup must launch mont_pow, once a batched
+   inversion.  The pk, vk and proof sizes
    must equal SWEEP.csv's row for one payload.
 5b. The same path at the reference benchmark's width, ZKlaimCircuit(20)
    (zklaim/main_benchmark.c's MAX_PL: 508,203 variables, m = 2^20, a 229.7
@@ -67,8 +70,9 @@
    predicates of payload 0 and of the last payload tampered with): the
    byte sizes must equal SWEEP.csv's row for 20 payloads, a proof_generate
    on an imported pk must launch what _proof_launches derives (80
-   msm_tails: 64 G1 chunks and 16 G2; 14 ntt_stage: two K3 passes a
-   transform of 2^20), trusted_setup mont_pow.  Prints each role's
+   msm_tails and 80 msm_abel: 64 G1 chunks and 16 G2; 320 msm_upsweep,
+   four a pass; 160 point_add, the chunk sums; 14 ntt_stage: two K3 passes
+   a transform of 2^20), trusted_setup mont_pow.  Prints each role's
    seconds, the pk import's, the peak device memory and the launches beside
    phase 5's.
 6. Holds the card against the CPU on the small circuit: the same seed must
@@ -128,9 +132,15 @@ KERNEL_ROWS = {
     "point_double": ("zklaim_tpu_torch/csrc/curve.cu", "zklaim_tpu/ec/pallas_curve.py:233"),
     "mont_pow": ("zklaim_tpu_torch/csrc/mont_mul.cu",
                  "zklaim_tpu/ntt/pallas_ntt.py:63 in the loop of zklaim_tpu/ff/montgomery.py:236"),
+    "msm_upsweep": ("zklaim_tpu_torch/csrc/curve.cu",
+                    "zklaim_tpu/ec/pallas_curve.py:222 through :369 (_padd_halves_soa) in the "
+                    "loop of zklaim_tpu/msm/pippenger.py:317"),
     "msm_tails": ("zklaim_tpu_torch/csrc/curve.cu",
                   "zklaim_tpu/ec/pallas_curve.py:222 in the loop of "
                   "zklaim_tpu/msm/pippenger.py:337"),
+    "msm_abel": ("zklaim_tpu_torch/csrc/curve.cu",
+                 "zklaim_tpu/ec/pallas_curve.py:222 through :369 (_padd_halves_soa) in the "
+                 "loop of zklaim_tpu/msm/pippenger.py:354"),
     "msm_finish": ("zklaim_tpu_torch/csrc/curve.cu",
                    "zklaim_tpu/ec/pallas_curve.py:233 and :222 in the loops of "
                    "zklaim_tpu/msm/pippenger.py:366"),
@@ -201,16 +211,19 @@ def _proof_launches(num_vars: int, num_primary: int, m: int, c: int = 8) -> dict
     one batch, the G2 sum (num_vars) alone; k sums pad to k2, a power of two,
     and their points to n2, the next power of two, or, past chunk =
     MAX_LANES[deg] / (k2 W) points, to whole chunks, one pass each.  A pass
-    of L lanes launches msm_tails once and point_add once an upsweep level
-    (log2 L) and once a level of the Abel tree (c - 1); a sum in chunks adds
-    two point_add a chunk (tot and head); each sum finishes in one
-    msm_finish.  The transforms (groth16/qap.py:h_coefficients): seven of m,
-    each one ntt_local and one ntt_stage a pass of gpu_ntt.global_passes."""
+    of L lanes launches msm_upsweep once a launch of its plan
+    (msm/upsweep_plan.py:upsweep_plan(deg, log2 L): four at 2^21 and 2^20
+    lanes), msm_tails once and msm_abel once, and no point_add; a sum in
+    chunks adds two point_add a chunk (tot and head); each sum finishes in
+    one msm_finish.  The transforms (groth16/qap.py:h_coefficients): seven
+    of m, each one ntt_local and one ntt_stage a pass of
+    gpu_ntt.global_passes."""
     from zklaim_tpu_torch.msm.pippenger import MAX_LANES
+    from zklaim_tpu_torch.msm.upsweep_plan import upsweep_plan
     from zklaim_tpu_torch.ntt.gpu_ntt import global_passes
 
     W = 256 // c
-    out = {"msm_finish": 0, "msm_tails": 0, "point_add": 0}
+    out = {"msm_finish": 0, "msm_tails": 0, "msm_upsweep": 0, "msm_abel": 0, "point_add": 0}
     for deg, lengths in ((1, (num_vars, num_vars, m - 1, num_vars - num_primary - 1)),
                          (2, (num_vars,))):
         k2 = 1 << (len(lengths) - 1).bit_length()
@@ -221,8 +234,9 @@ def _proof_launches(num_vars: int, num_primary: int, m: int, c: int = 8) -> dict
         lanes = k2 * W * width
         out["msm_finish"] += 1
         out["msm_tails"] += passes
-        sums = 2 * passes if passes > 1 else 0
-        out["point_add"] += passes * (lanes.bit_length() - 1 + c - 1) + sums
+        out["msm_abel"] += passes
+        out["msm_upsweep"] += passes * len(upsweep_plan(deg, lanes.bit_length() - 1))
+        out["point_add"] += 2 * passes if passes > 1 else 0
     out["ntt_local"] = 7
     out["ntt_stage"] = 7 * len(global_passes(m))
     return out
@@ -275,6 +289,9 @@ def _check_credential(res: dict, what: str) -> None:
     if got != res["derived_proof_launches"]:
         raise AssertionError(f"{what}: proof_generate on an imported pk launched {got}, "
                              f"derived {res['derived_proof_launches']}")
+    if got["point_add"] > 2 * got["msm_tails"] or got["msm_upsweep"] > 4 * got["msm_tails"]:
+        raise AssertionError(f"{what}: a pass launched point_add or more than four msm_upsweep: "
+                             f"{got}")
     _require_launched(res["launches"], what, K.PATH_KERNELS)
     _require_not_launched(res["launches"], what, ("point_double",))
     _require_launched(res["trusted_setup_launches"], f"{what}'s trusted_setup", ("mont_pow",))
@@ -301,6 +318,11 @@ def _wide_credential_phase(dev, card: str, narrow: dict) -> dict:
     res["launches"] = dict(K.LAUNCHES)
     res["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
     res["derived_proof_launches"] = _proof_launches(res["num_vars"], res["num_primary"], res["m"])
+    if res["derived_proof_launches"] != {"msm_finish": 2, "msm_tails": 80, "msm_upsweep": 320,
+                                         "msm_abel": 80, "ntt_local": 7, "ntt_stage": 14,
+                                         "point_add": 160}:
+        raise AssertionError(f"ZKlaimCircuit({MAX_PL}): the derived launches "
+                             f"{res['derived_proof_launches']} moved")
     print(f"[{card}] run_credential_path ZKlaimCircuit({MAX_PL}), 1 holder: "
           f"{res['num_vars']} variables, {res['num_primary']} primary, m = {res['m']}; "
           f"phase {res['phase_s']:.3f} s; beside it ZKlaimCircuit(1) (phase 5) in brackets")
@@ -470,8 +492,8 @@ def _multi_device_phase(dev, card: str, credential) -> dict:
     res["launches"] = dict(K.LAUNCHES)
     print(f"[{card}] multi-device phase launches {res['launches']}", flush=True)
     _require_launched(res["launches"], "the multi-device phase",
-                      ("mont_mul", "ntt_local", "ntt_stage", "point_add", "msm_tails",
-                       "msm_finish"))
+                      ("mont_mul", "ntt_local", "ntt_stage", "point_add", "msm_upsweep",
+                       "msm_tails", "msm_abel", "msm_finish"))
     return res
 
 
@@ -678,11 +700,13 @@ def main() -> None:
           f"{cred['proof_generate_launches'][-1]}; proof_generate on an imported pk "
           f"{cred['reprove_launches']}; pk import {cred['pk_import_launches']}")
     print(f"[{card}] status codes {cred['status']}", flush=True)
-    # one msm_finish a finish, one msm_tails a pass, one ntt_stage a transform
+    # one msm_finish a finish, one msm_tails and one msm_abel a pass, four
+    # msm_upsweep a pass, point_add only for the chunk sums, one ntt_stage a transform
     cred["derived_proof_launches"] = _proof_launches(cred["num_vars"], cred["num_primary"],
                                                      cred["m"])
-    if cred["derived_proof_launches"] != {"msm_finish": 2, "msm_tails": 3, "ntt_local": 7,
-                                          "ntt_stage": 7, "point_add": 87}:
+    if cred["derived_proof_launches"] != {"msm_finish": 2, "msm_tails": 3, "msm_upsweep": 12,
+                                          "msm_abel": 3, "ntt_local": 7, "ntt_stage": 7,
+                                          "point_add": 4}:
         raise AssertionError(f"ZKlaimCircuit(1): the derived launches "
                              f"{cred['derived_proof_launches']} moved")
     _check_credential(cred, "run_credential_path")

@@ -1,5 +1,5 @@
-"""Kernels K1-K9, mont_pow, msm_tails and msm_finish against their plain
-versions on the card (needs CUDA), K2 through both its entries, K2 and K3
+"""Kernels K1-K9, mont_pow, msm_upsweep, msm_tails, msm_abel and msm_finish
+against their plain versions on the card (needs CUDA), K2 through both its entries, K2 and K3
 on batches of transforms (one launch a batch), and every kernel on its
 operands' card (needs two).
 
@@ -192,6 +192,39 @@ def test_msm_tails_on_strided_levels(cuda):
         assert K.LAUNCHES["msm_tails"] == before + 1
         want = _tails_plain(deg, [v.contiguous() for v in views], mm, nb)
         assert max_abs_err(got, want) == 0, deg
+
+
+def test_msm_upsweep_and_abel_at_small_tiles(cuda):
+    """msm_upsweep under plans of small tiles (many launches of many CTAs)
+    and of the card's (one-CTA launches whose last levels leave warps and
+    G2 pairs part empty), on a level 0 sliced from wider planes, and
+    msm_abel at window sizes 2, 4 and 8 on sliced heads, G1 and G2, equal
+    the plain loops; one launch a (t, r, T) of the plan and one a tree."""
+    import numpy as np
+
+    from zklaim_tpu_torch.ec.gpu_curve import msm_abel_planes, msm_upsweep_planes
+    from zklaim_tpu_torch.kernels.cases import random_points
+    from zklaim_tpu_torch.msm.pippenger import _abel_plain, _upsweep_plain
+    from zklaim_tpu_torch.msm.upsweep_plan import abel_levels, upsweep_plan
+
+    rng = np.random.default_rng(14)
+    for deg in (1, 2):
+        wide = random_points(deg, (1 << 12) + 5, rng, cuda)
+        for nb, held in ((12, None), (12, 64), (9, 8), (5, None), (1, None), (0, None)):
+            level0 = wide[..., 3 : 3 + (1 << nb)]                # limb stride 4101, not 2^nb
+            plan = upsweep_plan(deg, nb, held)
+            before = K.LAUNCHES["msm_upsweep"]
+            got = msm_upsweep_planes(deg, level0, plan)
+            assert K.LAUNCHES["msm_upsweep"] == before + len(plan)
+            want = _upsweep_plain(deg, level0.contiguous())
+            assert max_abs_err(got, want) == 0, (deg, nb, held)
+        for c in (2, 4, 8):
+            kw = 256 // c
+            heads = wide[..., 1 : 1 + (kw << (c - 1))]
+            before = K.LAUNCHES["msm_abel"]
+            got = msm_abel_planes(deg, heads, kw, abel_levels(deg, heads.shape[2], kw))
+            assert K.LAUNCHES["msm_abel"] == before + 1
+            assert max_abs_err(got, _abel_plain(deg, heads.contiguous(), kw)) == 0, (deg, c)
 
 
 def test_point_add_g2_on_strided_views(cuda):

@@ -122,14 +122,14 @@ def _launch_calls(path: Path) -> list:
 
 
 def test_every_launch_site_names_its_device():
-    """The port's thirteen launch sites (K2's two entries launch apart):
+    """The port's sixteen launch sites (K2's two entries launch apart):
     each passes device=."""
     sites = {str(p.relative_to(PORT)): _launch_calls(p) for p in sorted(PORT.rglob("*.py"))}
     sites = {f: calls for f, calls in sites.items() if calls}
     assert {f: len(c) for f, c in sites.items()} == {
-        "ec/gpu_curve.py": 4, "ff/montgomery.py": 2, "ntt/gpu_ntt.py": 3,
+        "ec/gpu_curve.py": 6, "ff/montgomery.py": 2, "ntt/gpu_ntt.py": 3,
         "tools/grid_micro.py": 1, "tools/mont_micro.py": 1, "tools/padd_micro.py": 1,
-        "tools/pallas_op_micro.py": 1,
+        "tools/pallas_op_micro.py": 1, "tools/upsweep_plans.py": 1,
     }
     missing = [(f, line) for f, calls in sites.items() for line, kws in calls if "device" not in kws]
     assert not missing

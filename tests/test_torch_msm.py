@@ -110,16 +110,18 @@ def test_msm_many_padding_and_chunks_match_host(lengths, seeds, chunk):
 
 @pytest.mark.parametrize("max_lanes", [{1: 1 << 9, 2: 1 << 8}, {1: 1 << 14, 2: 1 << 13}])
 def test_chip_smoke_launch_rule_matches_prove_sums(monkeypatch, max_lanes):
-    """chip_smoke._proof_launches derives a proof's msm_tails, msm_finish
-    and point_add launches from the key's dimensions; the prover's sums
-    (groth16.api.prove_sums) make that many calls of the launching
-    functions.  The functions are stubbed with shape-only stand-ins, so
-    only the pipeline's control flow runs: with small MAX_LANES both sums
-    run in chunks (G1 16 passes, G2 5), with large ones in one pass each."""
+    """chip_smoke._proof_launches derives a proof's msm_upsweep, msm_tails,
+    msm_abel, msm_finish and point_add launches from the key's dimensions;
+    the prover's sums (groth16.api.prove_sums) make that many calls of the
+    launching functions (an upsweep as many launches as its plan has).  The
+    functions are stubbed with shape-only stand-ins, so only the pipeline's
+    control flow runs: with small MAX_LANES both sums run in chunks (G1 16
+    passes, G2 5), with large ones in one pass each.  No pass adds through
+    point_add_halves: only the chunk sums launch point_add."""
     import chip_smoke
     from zklaim_tpu_torch.groth16.api import ProvingKey, prove_sums
 
-    calls = {"msm_tails": 0, "msm_finish": 0, "point_add": 0}
+    calls = {"msm_upsweep": 0, "msm_tails": 0, "msm_abel": 0, "msm_finish": 0, "point_add": 0}
 
     def count(name, fn):
         def stub(*args):
@@ -127,11 +129,18 @@ def test_chip_smoke_launch_rule_matches_prove_sums(monkeypatch, max_lanes):
             return fn(*args)
         return stub
 
+    def upsweep(deg, level0):
+        nb = level0.shape[-1].bit_length() - 1
+        calls["msm_upsweep"] += len(TP.upsweep_plan(deg, nb))
+        return [level0[..., : level0.shape[-1] >> t] for t in range(nb + 1)]
+
     monkeypatch.setattr(TP, "point_add_halves",
                         count("point_add", lambda deg, p: p[..., : p.shape[-1] // 2]))
     monkeypatch.setattr(TP, "point_add_planes", count("point_add", lambda deg, a, b: a))
+    monkeypatch.setattr(TP, "_upsweep", upsweep)
     monkeypatch.setattr(TP, "_tails", count(
         "msm_tails", lambda deg, levels, m, nb: C.infinity_planes(deg, m.shape[0], "cpu")))
+    monkeypatch.setattr(TP, "_abel", count("msm_abel", lambda deg, heads, kw: heads[..., :kw]))
     monkeypatch.setattr(TP, "_finish", count(
         "msm_finish", lambda deg, tot, head, c, k: C.infinity_planes(deg, k, "cpu")))
     for deg, lanes in max_lanes.items():
@@ -145,7 +154,9 @@ def test_chip_smoke_launch_rule_matches_prove_sums(monkeypatch, max_lanes):
     prove_sums(pk, w, _scalars([1] * (m - 1)))
     want = chip_smoke._proof_launches(num_vars, num_primary, m)
     assert calls == {k: want[k] for k in calls}
-    assert want["msm_tails"] == (21 if max_lanes[1] == 1 << 9 else 2)
+    assert want["msm_tails"] == want["msm_abel"] == (21 if max_lanes[1] == 1 << 9 else 2)
+    assert want["msm_upsweep"] == (21 if max_lanes[1] == 1 << 9 else 4)
+    assert want["point_add"] == (42 if max_lanes[1] == 1 << 9 else 0)
 
 
 def test_fixed_base_matches_jax_projective():

@@ -14,19 +14,23 @@
 // The formula is rcb.cuh's rcb_add_f, the dataflow of _rcb_add
 // (pallas_curve.py:143-164), so the projective outputs are bit-identical to
 // jaxcurve.point_add; the probes of probes.cu call the same function.  With
-// per-operand strides the halves mode of the MSM upsweep -- lo half + hi
-// half of one plane set -- is one launch on two strided views, with no copy
-// and no second kernel.  G1: one thread per lane, everything in registers.
+// per-operand strides the halves mode -- lo half + hi half of one plane set
+// (point_add_halves: msm_ladder's fold) -- is one launch on two strided
+// views, with no copy.  A pass's upsweep and Abel tree, many levels of
+// halves each, are msm_upsweep and msm_abel below.
+// G1: one thread per lane, everything in registers.
 // G2: one thread a lane kept the six Fq2 inputs (96 registers) and the
 // temporaries live and spilled at 255 registers; so a lane runs on a PAIR of
 // adjacent threads (field.cuh:Fq2Pair), each holding one Fq component of
 // every value: sums stay in the thread, a product swaps the partner's
 // components by __shfl_xor_sync and takes two of the schoolbook's four Fq
 // products, 28 a thread and 56 a lane where Karatsuba needs 42.
-// What bounds it on the card: integer multiply throughput (12 Fq
-// multiplies a G1 lane; 42 at least a G2 lane) and registers.  The bytes
-// moved (6 x 64 B in, 3 x 64 B out per coordinate component) are small
-// beside the arithmetic.
+// What bounds it on the card: one launch moves 9 deg field elements a lane
+// (6 in, 3 out, 64 B each) for 12 Fq products (G1; 42 over Fq2), so a G1
+// launch is bound by its bytes and a G2 one by its products.  Its callers
+// add one level at a time (the chunk sums of a batched MSM, the comb,
+// scalar_mul, msm_ladder's fold), where nothing stays on chip between
+// launches; the levels of a pass, which can, are msm_upsweep's.
 //
 // msm_tails (K4's second entry)
 // Replaces: the bucket-tail loop of zklaim_tpu/msm/pippenger.py:337-343,
@@ -55,6 +59,46 @@
 // and eight or so linear steps an add, popcount(m) adds) against the card's
 // multiply throughput once all 132 SMs hold groups; bytes are small (one
 // node a set bit and one point a lane).
+//
+// msm_upsweep and msm_abel (K4's third and fourth entries)
+// Replaces: zklaim_tpu/ec/pallas_curve.py:_add_kernel launched through
+// _padd_halves_soa (:369) in the upsweep loop of zklaim_tpu/msm/pippenger.py
+// (:317, every level of a pass, column j of level t + 1 = column j + column
+// j + w_t / 2 of level t) and in its Abel loop (:354, the B k W heads halved
+// to k W window columns).  As K4 launches that is one launch a level, 28 a
+// G1 pass of 2^21 lanes (21 + 7) and 27 a G2 pass: 22 of the 28 narrower
+// than one wave of the card, each paying the launch floor and its host
+// call, and each level written by one launch and read back by the next.
+// Here a launch computes r consecutive levels t + 1 ... t + r: column j of
+// level t + r is a tree over the 2^r columns j + i w_{t+r} of level t, all in
+// j's residue class mod w_{t+r}, so a CTA that owns T neighbouring columns of
+// level t + r reads its 2^r T inputs as 2^r runs of T columns, keeps level
+// t + 1 (2^(r-1) T points, 96 B a G1 and 192 B a G2 point, in 48 KB) in
+// shared memory and each level after it in the first slots of the same
+// memory, and stores every level's columns to device memory, where
+// msm_tails reads them (the levels are views into one buffer, the table of
+// (base, plane stride, limb stride) the tails take).  The plan, r and T a
+// launch, is msm/upsweep_plan.py:upsweep_plan, as many levels a launch as
+// the shared memory holds: the first launch, 7/8 of the adds, one column a
+// lane (T = 128 G1, 64 G2; 3 levels); the later ones runs of T = 32 columns
+// (a warp's 128-byte line of a limb; 5 levels G1, 4 G2); and, once the
+// levels left fit one CTA, one launch of one CTA down to width 1: a G1
+// pass of 2^21 lanes in 4 launches (3 + 5 + 5 + 8 levels), a G2 pass of
+// 2^20 in 4 (3 + 4 + 4 + 9), where K4 took 21 and 20.  msm_abel is the same
+// kernel as one launch from the heads to the k W columns with only the
+// last level stored, one CTA a column (G1 k = 4, c = 8: 7 levels, 128 CTAs).  A lane
+// runs the add one thread a lane (G1) or on a pair of threads (G2,
+// Fq2Pair), as K4, at K4's occupancy (three CTAs of 128 threads an SM); a
+// thread loops over its outputs, a barrier between
+// levels; the pairing and the formula are K4's, so every level equals the
+// K4 loop's limb for limb.
+// What bounds it: the adds, 2^nb - 1 a pass (12 Fq products a G1 add, 42
+// over Fq2).  A G1 pass of 2^21 lanes is 0.240 ms by bytes (level 0 read
+// once, every level written once: 9 field elements an add, where the K4
+// loop moved 9 a lane a level) and 0.204 ms by the assumed product rate;
+// the add itself runs at K4's rate (tools/upsweep_plans.py times both), and
+// below the card's width every level is at least one dependent add a lane,
+// which no launch shape removes: the last launches are latency-bound.
 //
 // K5 point_double
 // Replaces: zklaim_tpu/ec/pallas_curve.py:_double_kernel, launched through
@@ -103,9 +147,11 @@
 // What bounds it: the latency of one warp's dependent chain (about 1 us a
 // product step, as K6 measures fe_mul at low occupancy, and a fraction of
 // that a linear step); bytes and throughput are nothing (one CTA).
-// ptxas (CUDA 12.8, sm_90a), registers: K4 108 (G1) and 144 (G2 on a pair
-// of threads; one thread a lane took 255 and spilled 128 bytes), msm_tails
-// 56, msm_finish 63, K5 80 / 194; no kernel spills or keeps a stack frame.
+// ptxas (CUDA 12.8, sm_90a; chip_smoke.py prints them), registers: K4 132
+// (G1) and 136 (G2 on a pair of threads; one thread a lane took 255 and
+// spilled 128 bytes), msm_upsweep and msm_abel 136 (G1) and 168 (G2; at
+// most 170 under the bounds of a 384-thread CTA), msm_tails 48, msm_finish
+// 99, K5 78 / 190; no kernel spills or keeps a stack frame.
 #include <cuda_runtime.h>
 
 #include "field.cuh"
@@ -531,4 +577,184 @@ extern "C" int zk_msm_tails(int deg, const long long* levels, int nlevels,
       lv, nlevels - 1, (const int64_t*)m, lanes, (int32_t*)out, o_ps, o_ls, 3 * deg,
       (const uint32_t*)sched, sched_words);
   return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// msm_upsweep and msm_abel
+// ---------------------------------------------------------------------------
+
+#define UPS_THREADS 128           // a CTA of a launch that fills the card: three an SM
+#define UPS_NARROW_THREADS 384    // a CTA of a launch of fewer CTAs than SMs: one an SM
+#define UPS_SHARED_MAX (48 * 1024)
+
+// The add a lane runs: G1 one thread, G2 a pair of threads (Fq2Pair), each
+// thread holding one Fq component of every value.
+template <int DEG>
+struct LaneField;
+template <>
+struct LaneField<1> {
+  typedef CurveField<1> F;
+};
+template <>
+struct LaneField<2> {
+  typedef Fq2Pair F;
+};
+
+// Shared-memory slot x of a CTA that keeps ns slots: word w of component c,
+// thread half h (G2: the pair's Fq component), at ((c * 8 + w) * ns + x) *
+// DEG + h, so the threads of a warp touch neighbouring words.
+template <int DEG>
+__device__ __forceinline__ Fe ups_slot_load(const uint32_t* sm, int ns, int x, int h, int c) {
+  Fe r;
+#pragma unroll
+  for (int w = 0; w < 8; w++) r.v[w] = sm[((c * 8 + w) * ns + x) * DEG + h];
+  return r;
+}
+
+template <int DEG>
+__device__ __forceinline__ void ups_slot_store(uint32_t* sm, int ns, int x, int h, int c,
+                                               const Fe& a) {
+#pragma unroll
+  for (int w = 0; w < 8; w++) sm[((c * 8 + w) * ns + x) * DEG + h] = a.v[w];
+}
+
+// The column of level t + s that slot x of the CTA whose first column is b0
+// stands for, in a launch whose last level is w_out wide and gives a CTA T
+// (a power of two) columns: msm/upsweep_plan.py:column.
+__device__ __forceinline__ int64_t ups_col(int64_t b0, int x, int T, int64_t w_out) {
+  return b0 + (x & (T - 1)) + (int64_t)(x / T) * w_out;
+}
+
+// Levels t + 1 ... t + r from level t (lv.base[t]); CTA b owns columns
+// b T ... b T + T - 1 of level t + r.  Local level s has nout = 2^(r-s) T
+// outputs: slot x = slot x + slot x + nout of level s - 1 (s = 1: the
+// columns of level t those slots stand for, read from device memory), kept
+// in slot x while s < r and stored to level t + s where `inner` is set or
+// s = r.  A slot x < nout is read only by output x, so each level is
+// computed in place; a barrier separates the levels.  A lane loops over
+// the outputs nout / (lanes a CTA) apart; a warp leaves the loop as a
+// whole (the G2 add shuffles over the full warp), a lane past the end adds
+// zeros and stores nothing.  A launch of fewer CTAs than the card has SMs
+// leaves SMs idle whatever its CTAs do, so its CTAs take 384 threads (the
+// most whose registers, at most 170 each under these bounds, fit one SM):
+// its lanes take fewer turns at the first levels, where each turn is the
+// latency of a whole add.
+template <int DEG>
+__global__ void __launch_bounds__(UPS_NARROW_THREADS)
+msm_upsweep_kernel(const TailLevels lv, int t, int r, int T, int64_t w_out, int inner) {
+  typedef typename LaneField<DEG>::F Fd;
+  extern __shared__ uint32_t ups_smem[];
+  const int h = DEG == 2 ? (threadIdx.x & 1) : 0;
+  const int lane = threadIdx.x / DEG;
+  const int lanes = blockDim.x / DEG;
+  const int warp_lane0 = (threadIdx.x & ~31) / DEG;
+  const int ns = (1 << (r - 1)) * T;
+  const int64_t b0 = (int64_t)blockIdx.x * T;
+  const int32_t* src = lv.base[t];
+  const int64_t s_ps = lv.ps[t], s_ls = lv.ls[t];
+#pragma unroll 1
+  for (int s = 1; s <= r; s++) {
+    const int nout = (1 << (r - s)) * T;
+    const bool keep = s < r;
+    const bool store = inner || s == r;
+    int32_t* dst = (int32_t*)lv.base[t + s];
+    const int64_t d_ps = lv.ps[t + s], d_ls = lv.ls[t + s];
+#pragma unroll 1
+    for (int base = 0; base + warp_lane0 < nout; base += lanes) {
+      const int x = base + lane;
+      const bool live = x < nout;
+      Fe a[3], q[3];
+#pragma unroll
+      for (int c = 0; c < 3; c++) a[c] = q[c] = Fe();
+      if (live && s == 1) {
+        const int64_t ca = ups_col(b0, x, T, w_out), cq = ups_col(b0, x + nout, T, w_out);
+#pragma unroll
+        for (int c = 0; c < 3; c++) {
+          a[c] = fe_load(src + (DEG * c + h) * s_ps, s_ls, 1, ca);
+          q[c] = fe_load(src + (DEG * c + h) * s_ps, s_ls, 1, cq);
+        }
+      } else if (live) {
+#pragma unroll
+        for (int c = 0; c < 3; c++) {
+          a[c] = ups_slot_load<DEG>(ups_smem, ns, x, h, c);
+          q[c] = ups_slot_load<DEG>(ups_smem, ns, x + nout, h, c);
+        }
+      }
+      Fe o[3];
+      rcb_add_f<Fd>(a[0], a[1], a[2], q[0], q[1], q[2], o[0], o[1], o[2]);
+      if (live && keep) {
+#pragma unroll
+        for (int c = 0; c < 3; c++) ups_slot_store<DEG>(ups_smem, ns, x, h, c, o[c]);
+      }
+      if (live && store) {
+        const int64_t co = ups_col(b0, x, T, w_out);
+#pragma unroll
+        for (int c = 0; c < 3; c++) fe_store(dst + (DEG * c + h) * d_ps, d_ls, 1, co, o[c]);
+      }
+    }
+    __syncthreads();
+  }
+}
+
+static int ups_launch(int deg, const TailLevels& lv, int t, int r, int T, long long w_out,
+                      int inner, cudaStream_t s) {
+  if ((deg != 1 && deg != 2) || r < 1 || r > 30 || T < 1 || (T & (T - 1)) || w_out < T ||
+      w_out % T) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const size_t bytes = ((size_t)1 << (r - 1)) * T * 3 * 8 * 4 * deg;
+  if (bytes > UPS_SHARED_MAX) return (int)cudaErrorInvalidValue;
+  const unsigned blocks = (unsigned)(w_out / T);
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return (int)err;
+  const int threads = blocks < (unsigned)sms ? UPS_NARROW_THREADS : UPS_THREADS;
+  if (deg == 1) {
+    msm_upsweep_kernel<1><<<blocks, threads, bytes, s>>>(lv, t, r, T, w_out, inner);
+  } else {
+    msm_upsweep_kernel<2><<<blocks, threads, bytes, s>>>(lv, t, r, T, w_out, inner);
+  }
+  return (int)cudaGetLastError();
+}
+
+// levels: nlevels (base, plane stride, limb stride) triples in host memory,
+// level l 2^(nlevels - 1 - l) columns wide; one launch of the plan
+// (msm/upsweep_plan.py:upsweep_plan): levels t + 1 ... t + r, T columns of
+// level t + r a CTA.
+extern "C" int zk_msm_upsweep(int deg, const long long* levels, int nlevels, int t, int r, int T,
+                              void* stream) {
+  if (nlevels < 2 || nlevels > TAIL_MAX_LEVELS || t < 0 || r < 1 || t + r > nlevels - 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  TailLevels lv;
+  for (int l = 0; l < TAIL_MAX_LEVELS; l++) {
+    const bool given = l < nlevels;
+    lv.base[l] = given ? (const int32_t*)levels[3 * l] : nullptr;
+    lv.ps[l] = given ? levels[3 * l + 1] : 0;
+    lv.ls[l] = given ? levels[3 * l + 2] : 0;
+    if (given && !lv.base[l]) return (int)cudaErrorInvalidValue;
+  }
+  return ups_launch(deg, lv, t, r, T, 1ll << (nlevels - 1 - t - r), 1, (cudaStream_t)stream);
+}
+
+// The Abel tree: heads (kw 2^r columns) -> out (kw columns) in r levels, one
+// CTA a column of out (msm/upsweep_plan.py:abel_levels); the inner levels stay
+// in shared memory.
+extern "C" int zk_msm_abel(int deg, const void* heads, long long h_ps, long long h_ls,
+                           void* out, long long o_ps, long long o_ls, int r, long long kw,
+                           void* stream) {
+  if (r < 1 || r >= TAIL_MAX_LEVELS || !heads || !out) return (int)cudaErrorInvalidValue;
+  TailLevels lv;
+  for (int l = 0; l < TAIL_MAX_LEVELS; l++) {
+    lv.base[l] = nullptr;
+    lv.ps[l] = lv.ls[l] = 0;
+  }
+  lv.base[0] = (const int32_t*)heads;
+  lv.ps[0] = h_ps;
+  lv.ls[0] = h_ls;
+  lv.base[r] = (const int32_t*)out;
+  lv.ps[r] = o_ps;
+  lv.ls[r] = o_ls;
+  return ups_launch(deg, lv, 0, r, 1, kw, 0, (cudaStream_t)stream);
 }

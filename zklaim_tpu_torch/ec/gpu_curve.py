@@ -24,6 +24,12 @@ msm.pippenger._finish_plain.
 pass -- for every tail lane one add per set bit of its prefix length, from
 the upsweep levels -- as ONE launch of kernel msm_tails, CUDA tensors only;
 its plain version is msm.pippenger._tails_plain.
+
+`msm_upsweep_planes` (K4's third entry) builds every upsweep level of a pass
+from level 0 in the few launches of a plan (msm/upsweep_plan.py:
+upsweep_plan), `msm_abel_planes` (the fourth) halves a pass's Abel heads to
+its window columns in one launch, CUDA tensors only; their plain versions
+are msm.pippenger._upsweep_plain and _abel_plain, the loops of the add.
 """
 
 from __future__ import annotations
@@ -182,20 +188,70 @@ def msm_tails_planes(deg: int, levels: list, m: torch.Tensor, nb: int) -> torch.
     if not 0 <= nb < TAILS_MAX_LEVELS or len(levels) != nb + 1:
         raise ValueError(f"msm_tails: {len(levels)} levels for a batch of 2^{nb} lanes "
                          f"(nb + 1 levels, at most {TAILS_MAX_LEVELS})")
-    table = []
     for t, lvl in enumerate(levels):
         _check(deg, lvl, f"msm_tails level {t}")
         if lvl.shape[2] != 1 << (nb - t):
             raise ValueError(f"msm_tails: level {t} is {tuple(lvl.shape)}, "
                              f"expected width {1 << (nb - t)}")
-        table += [lvl.data_ptr(), lvl.stride(0), lvl.stride(1)]
     dev = K.launch_device("msm_tails", *levels, others=(m,))
     sched, g, slots = _schedule_on(rcb_schedule.tails_schedule, deg, str(dev))
     lanes = m.shape[0]
     out = torch.empty((3 * deg, 16, lanes), dtype=torch.int32, device=dev)
     if lanes:
-        words = (ctypes.c_longlong * len(table))(*table)        # copied into the launch
-        K.launch("msm_tails", deg, ctypes.addressof(words), nb + 1, m.data_ptr(), lanes,
+        table = _level_table(levels)
+        K.launch("msm_tails", deg, ctypes.addressof(table), nb + 1, m.data_ptr(), lanes,
                  out.data_ptr(), out.stride(0), out.stride(1), sched.data_ptr(), sched.numel(),
                  g, slots, device=dev)
+    return out
+
+
+def _level_table(levels: list):
+    """(base, plane stride, limb stride) a level, as the C launchers read
+    them: a by-value table copied into the launch."""
+    words = [v for lvl in levels for v in (lvl.data_ptr(), lvl.stride(0), lvl.stride(1))]
+    return (ctypes.c_longlong * len(words))(*words)
+
+
+def msm_upsweep_planes(deg: int, level0: torch.Tensor, plan: list) -> list:
+    """Every upsweep level of a flat batch of 2^nb lanes: level0 (3 deg, 16,
+    2^nb) planes -> [level0, level 1, ..., level nb], level t (3 deg, 16,
+    2^(nb-t)) with column j = column j + column j + 2^(nb-t) of level t - 1,
+    limb for limb what pippenger._upsweep_plain gives.  Levels 1 ... nb are
+    views into one buffer (the tails read them by their strides).  One
+    msm_upsweep launch a (t, r, T) of `plan` (upsweep_plan.upsweep_plan),
+    which must cover levels 1 ... nb in order.  CUDA tensors only."""
+    _check(deg, level0, "msm_upsweep level 0")
+    dev = K.launch_device("msm_upsweep", level0)
+    n = level0.shape[2]
+    nb = n.bit_length() - 1
+    if n != 1 << nb or nb >= TAILS_MAX_LEVELS:
+        raise ValueError(f"msm_upsweep: {n} lanes (a power of two below 2^{TAILS_MAX_LEVELS})")
+    if [t for t, _, _ in plan] != [sum(r for _, r, _ in plan[:i]) for i in range(len(plan))] \
+            or sum(r for _, r, _ in plan) != nb:
+        raise ValueError(f"msm_upsweep: plan {plan} does not build levels 1 ... {nb} in order")
+    buf = torch.empty((3 * deg, 16, max(n - 1, 1)), dtype=torch.int32, device=dev)
+    levels, off = [level0], 0
+    for t in range(1, nb + 1):
+        levels.append(buf[..., off : off + (n >> t)])
+        off += n >> t
+    table = _level_table(levels)
+    for t, r, cols in plan:
+        K.launch("msm_upsweep", deg, ctypes.addressof(table), nb + 1, t, r, cols, device=dev)
+    return levels
+
+
+def msm_abel_planes(deg: int, heads: torch.Tensor, kw: int, r: int) -> torch.Tensor:
+    """The Abel tree of a pass in one launch: heads (3 deg, 16, kw 2^r),
+    b-major and window-minor, halved r times -> (3 deg, 16, kw), one CTA a
+    column (upsweep_plan.abel_levels), limb for limb what
+    pippenger._abel_plain gives; the inner levels stay in shared memory.
+    CUDA tensors only."""
+    _check(deg, heads, "msm_abel heads")
+    dev = K.launch_device("msm_abel", heads)
+    if r < 1 or heads.shape[2] != kw << r:
+        raise ValueError(f"msm_abel: {heads.shape[2]} heads are not {kw} columns halved "
+                         f"{r} times")
+    out = torch.empty((3 * deg, 16, kw), dtype=torch.int32, device=dev)
+    K.launch("msm_abel", deg, heads.data_ptr(), heads.stride(0), heads.stride(1),
+             out.data_ptr(), out.stride(0), out.stride(1), r, kw, device=dev)
     return out

@@ -1,5 +1,6 @@
-"""Build, load and launch the hand-written CUDA kernels (K1-K9, and the three
-whole-loop entries mont_pow of K1, msm_tails of K4 and msm_finish of K5).
+"""Build, load and launch the hand-written CUDA kernels (K1-K9, and the
+whole-loop entries mont_pow of K1, msm_tails, msm_upsweep and msm_abel of
+K4 and msm_finish of K5).
 
 The sources in ../csrc are compiled at first use, one nvcc process a
 source and all of them at once, then linked into one shared library with a
@@ -56,6 +57,8 @@ KERNELS = {
     "point_add": ("zk_point_add", [_I, _P, _I64, _I64, _P, _I64, _I64, _P, _I64, _I64, _I64]),
     "point_double": ("zk_point_double", [_I, _P, _I64, _I64, _P, _I64, _I64, _I64]),
     "msm_tails": ("zk_msm_tails", [_I, _P, _I, _P, _I64, _P, _I64, _I64, _P, _I, _I, _I]),
+    "msm_upsweep": ("zk_msm_upsweep", [_I, _P, _I, _I, _I, _I]),
+    "msm_abel": ("zk_msm_abel", [_I, _P, _I64, _I64, _P, _I64, _I64, _I, _I64]),
     "msm_finish": ("zk_msm_finish", [_I, _P, _I64, _I64, _P, _I64, _I64, _P, _I64, _I64,
                                      _I, _I, _I, _P, _I, _I, _I]),
     # the probes of the measuring path (csrc/probes.cu)
@@ -68,8 +71,8 @@ KERNELS = {
 # the kernels a proof must launch (mont_pow only where a key is serialized:
 # the issuer's trusted_setup; point_double only in scalar_mul / msm_ladder),
 # and the probes only the measuring path runs
-PATH_KERNELS = ("mont_mul", "mont_pow", "ntt_local", "ntt_stage", "point_add", "msm_tails",
-                "msm_finish")
+PATH_KERNELS = ("mont_mul", "mont_pow", "ntt_local", "ntt_stage", "point_add", "msm_upsweep",
+                "msm_tails", "msm_abel", "msm_finish")
 PROOF_KERNELS = tuple(k for k in PATH_KERNELS if k != "mont_pow")
 PROBE_KERNELS = ("mont_chain", "op_chain", "point_add_tiled", "point_add_chain")
 

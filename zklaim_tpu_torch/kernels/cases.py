@@ -12,11 +12,12 @@ to 120,000 steps); K6 also at the width that fills the card, the shape whose
 rate tools/mont_micro.py reports, and on ragged lane counts (a part-full
 last CTA; CTAs of one warp); K7 first at the tool's shorter chain, K = 20,000, whose
 plain version takes seconds, so that its headline times the kernel's work
-and not its launch.  The three whole-loop entries run at the
+and not its launch.  The whole-loop entries run at the
 credential path's shapes: mont_pow on 2^15 elements with e = p - 2 (the
-batched Fermat inversion of pk_to_bytes), msm_tails on the upsweep levels
-of a G1 pass of four sums (2^21 lanes) and of the G2 pass (2^20 lanes) at
-c = 8, msm_finish on the partials of four G1 sums and of one G2 sum at
+batched Fermat inversion of pk_to_bytes), msm_upsweep on the level 0 and
+msm_tails on the upsweep levels of a G1 pass of four sums (2^21 lanes) and
+of the G2 pass (2^20 lanes) at c = 8, msm_abel on those passes' heads,
+msm_finish on the partials of four G1 sums and of one G2 sum at
 c = 8, and on one small odd shape.  Their plain versions, like K3's at
 2^22, are loops of hundreds of plain products or point operations and take
 seconds: `plain_once` tells a caller to run and time them once.
@@ -186,9 +187,10 @@ def kernel_cases(device, n_field: int = 1 << 15, n_ntt: int = 1 << 15, n_ntt_big
     gather entry; K2 and K3 also at the bench's largest transform,
     n_ntt_big, K3 there in two passes, and on the four-step NTT's batches
     (batched_ntt_cases); the doubling also at 4 G1
-    lanes and 1 G2 lane, where a launch is all host), msm_tails at the
-    credential path's shapes (tails_cases), mont_pow and msm_finish at
-    theirs (loop_cases), then the four probes (probe_cases)."""
+    lanes and 1 G2 lane, where a launch is all host), msm_upsweep, msm_abel
+    and msm_tails at the credential path's shapes (upsweep_cases,
+    tails_cases), mont_pow and msm_finish at theirs (loop_cases), then the
+    four probes (probe_cases)."""
     rng = np.random.default_rng(seed)
     cases = []
     for spec in (FR, FQ):
@@ -266,8 +268,8 @@ def kernel_cases(device, n_field: int = 1 << 15, n_ntt: int = 1 << 15, n_ntt_big
                           lambda d=deg, p=p: G.point_double_planes(d, p),
                           lambda d=deg, p=p: G.point_double_plain(d, p),
                           6 * deg * n, DOUBLE_PRODUCTS[deg] * n))
-    return (cases + tails_cases(device, rng) + loop_cases(device, rng, n_field)
-            + probe_cases(device, rng))
+    return (cases + upsweep_cases(device, rng) + tails_cases(device, rng)
+            + loop_cases(device, rng, n_field) + probe_cases(device, rng))
 
 
 def batched_ntt_cases(device, rng: np.random.Generator,
@@ -314,20 +316,24 @@ def _fr_planes(n: int, rng: np.random.Generator, device) -> torch.Tensor:
     return torch.from_numpy(limbs.astype(np.int32)).t().contiguous().to(device)
 
 
-def tail_inputs(deg: int, k: int, c: int, lanes: int, rng: np.random.Generator, device):
-    """(levels, m, nb) as a pass of k sums at window size c over a flat batch
-    of `lanes` lanes makes them: random points (a pool of up to 4,096
-    gathered to the lanes), the upsweep of the device's K4 (or its plain
-    version), and the prefix lengths at the k W (B + 1) bucket tails of
-    digit magnitudes drawn as |d| of uniform c-bit signed digits, sorted by
-    window as the pass sorts them."""
-    W, B = 256 // c, 1 << (c - 1)
-    nb = lanes.bit_length() - 1
+def pass_points(deg: int, lanes: int, rng: np.random.Generator, device) -> torch.Tensor:
+    """(3 deg, 16, lanes) planes as a pass's gather gives them: random points,
+    a pool of up to 4,096 gathered to the lanes."""
     pool = random_points(deg, min(lanes, 1 << 12), rng, device)
     idx = torch.from_numpy(rng.integers(0, pool.shape[2], size=lanes)).to(device)
-    levels = [pool.index_select(2, idx)]
-    while levels[-1].shape[-1] > 1:
-        levels.append(G.point_add_halves(deg, levels[-1]))
+    return pool.index_select(2, idx)
+
+
+def tail_inputs(deg: int, k: int, c: int, lanes: int, rng: np.random.Generator, device):
+    """(levels, m, nb) as a pass of k sums at window size c over a flat batch
+    of `lanes` lanes makes them: pass_points, the upsweep of the device
+    (msm_upsweep on the card, its plain version on the CPU), and the prefix
+    lengths at the k W (B + 1) bucket tails of digit magnitudes drawn as |d|
+    of uniform c-bit signed digits, sorted by window as the pass sorts
+    them."""
+    W, B = 256 // c, 1 << (c - 1)
+    nb = lanes.bit_length() - 1
+    levels = P._upsweep(deg, pass_points(deg, lanes, rng, device))
     win = np.arange(k * W)[:, None]
     keys = np.sort((win * (B + 1) + np.abs(rng.integers(-B, B, size=(k * W, lanes // (k * W)))))
                    .reshape(-1))
@@ -353,6 +359,36 @@ def tails_cases(device, rng: np.random.Generator,
                           lambda d=deg, lv=levels, m=m, nb=nb: P._tails_plain(d, lv, m, nb),
                           3 * deg * (adds + m.shape[0]), ADD_PRODUCTS[deg] * adds,
                           extra_bytes=8 * m.shape[0], plain_once=True))
+    return cases
+
+
+def upsweep_cases(device, rng: np.random.Generator, passes=((1, 4, 8, 1 << 21), (2, 1, 8, 1 << 20))
+                  ) -> list:
+    """msm_upsweep and msm_abel at (deg, k, c, lanes) passes -- by default a G1
+    chunk of four sums at c = 8 and the G2 sum, the credential path's: the
+    upsweep of the pass's level 0 (pass_points) and the Abel tree of its
+    B k W heads (random points) to k W columns.  Work: the upsweep reads
+    level 0 once and writes every level once (2^nb - 1 adds); the Abel tree
+    reads the heads and writes k W points ((B - 1) k W adds)."""
+    cases = []
+    for deg, k, c, lanes in passes:
+        nb = lanes.bit_length() - 1
+        level0 = pass_points(deg, lanes, rng, device)
+        launches = len(P.upsweep_plan(deg, nb))
+        cases.append(Case("msm_upsweep", f"K4 msm_upsweep G{deg} k={k} c={c} lanes=2^{nb} "
+                                         f"({launches} launches)",
+                          lambda d=deg, x=level0: P._upsweep(d, x),
+                          lambda d=deg, x=level0: P._upsweep_plain(d, x),
+                          3 * deg * (2 * lanes - 1), ADD_PRODUCTS[deg] * (lanes - 1),
+                          plain_once=True))
+    for deg, k, c, _ in passes:
+        kw, B = k * 256 // c, 1 << (c - 1)
+        heads = pass_points(deg, B * kw, rng, device)
+        cases.append(Case("msm_abel", f"K4 msm_abel G{deg} k={k} c={c} heads={B * kw} to {kw}",
+                          lambda d=deg, x=heads, kw=kw: P._abel(d, x, kw),
+                          lambda d=deg, x=heads, kw=kw: P._abel_plain(d, x, kw),
+                          3 * deg * (B * kw + kw), ADD_PRODUCTS[deg] * (B - 1) * kw,
+                          plain_once=True))
     return cases
 
 
@@ -450,9 +486,14 @@ def probe_cases(device, rng: np.random.Generator, k_mont: int = 16, k_op: int = 
     return cases
 
 
-def max_abs_err(a: torch.Tensor, b: torch.Tensor):
+def max_abs_err(a, b):
     """Largest difference of two results (0 when they are identical): an int
-    for limbs and bit patterns, a float for float32 results."""
+    for limbs and bit patterns, a float for float32 results; over two lists
+    of tensors (the upsweep's levels), the largest of their pairs'."""
+    if isinstance(a, (list, tuple)) or isinstance(b, (list, tuple)):
+        if len(a) != len(b):
+            raise ValueError(f"mismatch: {len(a)} results vs {len(b)}")
+        return max((max_abs_err(x, y) for x, y in zip(a, b)), default=0)
     if a.shape != b.shape or a.dtype != b.dtype:
         raise ValueError(f"mismatch {tuple(a.shape)} {a.dtype} vs {tuple(b.shape)} {b.dtype}")
     if not a.numel():

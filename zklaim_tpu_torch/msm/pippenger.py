@@ -18,8 +18,15 @@ msm_many runs k sums as one flat batch (window w of sum i is window
 i*W + w) and one finish whose Horner ladder is k lanes wide: the finish's
 ~W*c sequential adds are paid once for all k sums, not k times.
 
-The upsweep and the Abel tree add through gpu_curve.point_add_halves
-(kernel K4 on CUDA, the plain version on CPU tensors).  The bucket-tail
+The upsweep -- every level of the pass, column j of level t + 1 the sum of
+columns j and j + w_t / 2 of level t -- is `_upsweep`: on CUDA planes a few
+launches of kernel msm_upsweep (gpu_curve.msm_upsweep_planes; four a pass of
+2^20 or 2^21 lanes, planned by msm/upsweep_plan.py), on CPU planes
+`_upsweep_plain`, the loop of the plain add over the halves.  The Abel tree
+-- the same halving of the heads down to the window columns -- is `_abel`:
+on CUDA planes ONE launch of kernel msm_abel (gpu_curve.msm_abel_planes), on
+CPU planes `_abel_plain`.  The kernels pair the columns as the loops do, so
+every level matches the JAX package's loops limb for limb.  The bucket-tail
 prefixes of step 3 -- for each of the W (B + 1) tail lanes, one add of an
 upsweep node per set bit of its prefix length, lowest level first -- are
 `_tails`: on CUDA planes ONE launch of kernel msm_tails
@@ -50,12 +57,13 @@ import torch
 
 from ..ec import curve as C
 from ..ec.gpu_curve import (
-    msm_finish_planes, msm_tails_planes, point_add_halves, point_add_plain, point_add_planes,
-    point_double_plain, scalar_mul,
+    msm_abel_planes, msm_finish_planes, msm_tails_planes, msm_upsweep_planes, point_add_halves,
+    point_add_plain, point_add_planes, point_double_plain, scalar_mul,
 )
 from ..ff import montgomery as M
 from ..ff.limbs import LIMB_BITS, NUM_LIMBS
 from ..ff.montgomery import FQ
+from .upsweep_plan import abel_levels, upsweep_plan
 
 # Max flat-batch lanes (k sums x W windows x points) per pass: the working
 # set is that many gathered rows plus about the same again in upsweep levels.
@@ -155,10 +163,9 @@ def _window_partials(deg: int, tables: list, c: int, mark=None):
 
     # bit-reversed storage: every upsweep level pairs contiguous halves
     sidx_br = sidx[torch.from_numpy(_bitrev_np(nb)).to(dev)]
-    levels = [C.rows_to_planes(table.index_select(0, sidx_br))]
+    level0 = C.rows_to_planes(table.index_select(0, sidx_br))
     mark("gather")
-    while levels[-1].shape[-1] > 1:
-        levels.append(point_add_halves(deg, levels[-1]))
+    levels = _upsweep(deg, level0)
     mark("upsweep")
 
     # global prefixes at every bucket tail: t_{w,b} = last sorted index
@@ -173,10 +180,50 @@ def _window_partials(deg: int, tables: list, c: int, mark=None):
     grid = acc.view(3 * deg, NUM_LIMBS, KW, B + 1)
     tot_w = grid[..., B].contiguous()
     heads = grid[..., :B].transpose(2, 3).reshape(3 * deg, NUM_LIMBS, B * KW)
-    while heads.shape[-1] > KW:                               # b-major, window-minor
-        heads = point_add_halves(deg, heads)
+    heads = _abel(deg, heads, KW)                            # b-major, window-minor
     mark("abel")
     return tot_w, heads
+
+
+def _add_halves_plain(deg: int, planes: torch.Tensor) -> torch.Tensor:
+    """The plain add of the contiguous halves: (3 deg, 16, w) -> (3 deg, 16, w/2)."""
+    w = planes.shape[-1]
+    return point_add_plain(deg, planes[..., : w // 2], planes[..., w // 2 :])
+
+
+def _upsweep_plain(deg: int, level0: torch.Tensor) -> list:
+    """Plain version of kernel msm_upsweep, on any device: the levels of a
+    flat batch of 2^nb lanes, level t + 1 the plain sum of level t's halves,
+    down to width 1."""
+    levels = [level0]
+    while levels[-1].shape[-1] > 1:
+        levels.append(_add_halves_plain(deg, levels[-1]))
+    return levels
+
+
+def _upsweep(deg: int, level0: torch.Tensor) -> list:
+    """The upsweep levels: CUDA planes -> the launches of msm_upsweep that
+    upsweep_plan gives, CPU planes -> _upsweep_plain."""
+    if level0.is_cuda:
+        nb = level0.shape[-1].bit_length() - 1
+        return msm_upsweep_planes(deg, level0, upsweep_plan(deg, nb))
+    return _upsweep_plain(deg, level0)
+
+
+def _abel_plain(deg: int, heads: torch.Tensor, kw: int) -> torch.Tensor:
+    """Plain version of kernel msm_abel, on any device: the heads halved
+    down to kw columns."""
+    while heads.shape[-1] > kw:
+        heads = _add_halves_plain(deg, heads)
+    return heads
+
+
+def _abel(deg: int, heads: torch.Tensor, kw: int) -> torch.Tensor:
+    """The Abel tree of a pass: CUDA planes -> one msm_abel launch, CPU
+    planes -> _abel_plain."""
+    if heads.is_cuda and heads.shape[-1] > kw:
+        return msm_abel_planes(deg, heads, kw, abel_levels(deg, heads.shape[-1], kw))
+    return _abel_plain(deg, heads, kw)
 
 
 def _tail_nodes(m: torch.Tensor, nb: int, t: int) -> tuple:

@@ -213,13 +213,14 @@ def _proof_launches(num_vars: int, num_primary: int, m: int, c: int = 8) -> dict
     MAX_LANES[deg] / (k2 W) points, to whole chunks, one pass each.  A pass
     of L lanes launches msm_upsweep once a launch of its plan
     (msm/upsweep_plan.py:upsweep_plan(deg, log2 L): four at 2^21 and 2^20
-    lanes), msm_tails once and msm_abel once, and no point_add; a sum in
+    lanes), msm_tails once and msm_abel once a launch of its Abel plan
+    (abel_plan(deg, B k2 W, k2 W): one at c = 8), and no point_add; a sum in
     chunks adds two point_add a chunk (tot and head); each sum finishes in
     one msm_finish.  The transforms (groth16/qap.py:h_coefficients): seven
     of m, each one ntt_local and one ntt_stage a pass of
     gpu_ntt.global_passes."""
     from zklaim_tpu_torch.msm.pippenger import MAX_LANES
-    from zklaim_tpu_torch.msm.upsweep_plan import upsweep_plan
+    from zklaim_tpu_torch.msm.upsweep_plan import abel_plan, upsweep_plan
     from zklaim_tpu_torch.ntt.gpu_ntt import global_passes
 
     W = 256 // c
@@ -234,7 +235,7 @@ def _proof_launches(num_vars: int, num_primary: int, m: int, c: int = 8) -> dict
         lanes = k2 * W * width
         out["msm_finish"] += 1
         out["msm_tails"] += passes
-        out["msm_abel"] += passes
+        out["msm_abel"] += passes * len(abel_plan(deg, (k2 * W) << (c - 1), k2 * W))
         out["msm_upsweep"] += passes * len(upsweep_plan(deg, lanes.bit_length() - 1))
         out["point_add"] += 2 * passes if passes > 1 else 0
     out["ntt_local"] = 7

@@ -194,37 +194,75 @@ def test_msm_tails_on_strided_levels(cuda):
         assert max_abs_err(got, want) == 0, deg
 
 
-def test_msm_upsweep_and_abel_at_small_tiles(cuda):
-    """msm_upsweep under plans of small tiles (many launches of many CTAs)
-    and of the card's (one-CTA launches whose last levels leave warps and
-    G2 pairs part empty), on a level 0 sliced from wider planes, and
-    msm_abel at window sizes 2, 4 and 8 on sliced heads, G1 and G2, equal
-    the plain loops; one launch a (t, r, T) of the plan and one a tree."""
+def test_msm_upsweep_and_abel_at_small_tiles(cuda, monkeypatch):
+    """msm_upsweep under plans of small tiles (a CTA's slots cut to `held`:
+    many launches of many CTAs) and of the card's (one-CTA launches whose
+    last levels leave warps and G2 pairs part empty), on a level 0 sliced
+    from wider planes, and msm_abel at window sizes 2, 4 and 8 on sliced
+    heads, G1 and G2, equal the plain loops; one launch a (t, r, T) of the
+    plan and one a tree."""
     import numpy as np
 
     from zklaim_tpu_torch.ec.gpu_curve import msm_abel_planes, msm_upsweep_planes
     from zklaim_tpu_torch.kernels.cases import random_points
+    from zklaim_tpu_torch.msm import upsweep_plan as UP
     from zklaim_tpu_torch.msm.pippenger import _abel_plain, _upsweep_plain
-    from zklaim_tpu_torch.msm.upsweep_plan import abel_levels, upsweep_plan
 
     rng = np.random.default_rng(14)
+    card_slots = UP.slots
     for deg in (1, 2):
         wide = random_points(deg, (1 << 12) + 5, rng, cuda)
         for nb, held in ((12, None), (12, 64), (9, 8), (5, None), (1, None), (0, None)):
+            monkeypatch.setattr(UP, "slots", card_slots if held is None else lambda d: held)
             level0 = wide[..., 3 : 3 + (1 << nb)]                # limb stride 4101, not 2^nb
-            plan = upsweep_plan(deg, nb, held)
+            plan = UP.upsweep_plan(deg, nb)
             before = K.LAUNCHES["msm_upsweep"]
             got = msm_upsweep_planes(deg, level0, plan)
             assert K.LAUNCHES["msm_upsweep"] == before + len(plan)
             want = _upsweep_plain(deg, level0.contiguous())
             assert max_abs_err(got, want) == 0, (deg, nb, held)
+        monkeypatch.setattr(UP, "slots", card_slots)
         for c in (2, 4, 8):
             kw = 256 // c
             heads = wide[..., 1 : 1 + (kw << (c - 1))]
             before = K.LAUNCHES["msm_abel"]
-            got = msm_abel_planes(deg, heads, kw, abel_levels(deg, heads.shape[2], kw))
+            got = msm_abel_planes(deg, heads, kw, UP.abel_plan(deg, heads.shape[2], kw))
             assert K.LAUNCHES["msm_abel"] == before + 1
             assert max_abs_err(got, _abel_plain(deg, heads.contiguous(), kw)) == 0, (deg, c)
+
+
+def test_msm_abel_chains_a_tree_past_one_cta(cuda):
+    """At c = 16 a window column's tree has 2^15 heads, more than a CTA
+    holds: _abel runs it as two msm_abel launches (8 and 7 levels, G1 and
+    G2), each launch's columns the next one's heads, and equals the halving
+    loop; a whole MSM of 2^10 points at c = 16 (two msm_abel launches) gives
+    the point c = 8 gives."""
+    import numpy as np
+
+    from zklaim_tpu_torch.bench import make_points
+    from zklaim_tpu_torch.ec import curve as C
+    from zklaim_tpu_torch.ff.limbs import ints_to_limbs, to_tensor
+    from zklaim_tpu_torch.ff.params import R
+    from zklaim_tpu_torch.kernels.cases import pass_points
+    from zklaim_tpu_torch.msm import pippenger as TP
+
+    rng = np.random.default_rng(16)
+    kw = 16
+    for deg in (1, 2):
+        heads = pass_points(deg, kw << 15, rng, cuda)
+        assert TP.abel_plan(deg, heads.shape[2], kw) == [8, 7]
+        before = K.LAUNCHES["msm_abel"]
+        got = TP._abel(deg, heads, kw)
+        assert K.LAUNCHES["msm_abel"] == before + 2
+        assert max_abs_err(got, TP._abel_plain(deg, heads, kw)) == 0, deg
+    rnd = random.Random(16)
+    rows = make_points(1, 1 << 10, cuda)
+    scalars = to_tensor(ints_to_limbs([rnd.randrange(R) for _ in range(1 << 10)]), cuda)
+    before = K.LAUNCHES["msm_abel"]
+    got = TP.msm_pow2(1, rows, scalars, c=16)
+    assert K.LAUNCHES["msm_abel"] == before + 2
+    want = TP.msm_pow2(1, rows, scalars, c=8)
+    assert C.planes_to_host_points(1, got) == C.planes_to_host_points(1, want)
 
 
 def test_point_add_g2_on_strided_views(cuda):

@@ -129,7 +129,7 @@ def test_every_launch_site_names_its_device():
     assert {f: len(c) for f, c in sites.items()} == {
         "ec/gpu_curve.py": 6, "ff/montgomery.py": 2, "ntt/gpu_ntt.py": 3,
         "tools/grid_micro.py": 1, "tools/mont_micro.py": 1, "tools/padd_micro.py": 1,
-        "tools/pallas_op_micro.py": 1, "tools/upsweep_plans.py": 1,
+        "tools/msm_stages.py": 1, "tools/pallas_op_micro.py": 1,
     }
     missing = [(f, line) for f, calls in sites.items() for line, kws in calls if "device" not in kws]
     assert not missing

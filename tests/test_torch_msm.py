@@ -113,10 +113,11 @@ def test_chip_smoke_launch_rule_matches_prove_sums(monkeypatch, max_lanes):
     """chip_smoke._proof_launches derives a proof's msm_upsweep, msm_tails,
     msm_abel, msm_finish and point_add launches from the key's dimensions;
     the prover's sums (groth16.api.prove_sums) make that many calls of the
-    launching functions (an upsweep as many launches as its plan has).  The
-    functions are stubbed with shape-only stand-ins, so only the pipeline's
-    control flow runs: with small MAX_LANES both sums run in chunks (G1 16
-    passes, G2 5), with large ones in one pass each.  No pass adds through
+    launching functions (an upsweep and an Abel tree as many launches as
+    their plans have).  The functions are stubbed with shape-only
+    stand-ins, so only the pipeline's control flow runs: with small
+    MAX_LANES both sums run in chunks (G1 16 passes, G2 5), with large ones
+    in one pass each.  No pass adds through
     point_add_halves: only the chunk sums launch point_add."""
     import chip_smoke
     from zklaim_tpu_torch.groth16.api import ProvingKey, prove_sums
@@ -134,13 +135,17 @@ def test_chip_smoke_launch_rule_matches_prove_sums(monkeypatch, max_lanes):
         calls["msm_upsweep"] += len(TP.upsweep_plan(deg, nb))
         return [level0[..., : level0.shape[-1] >> t] for t in range(nb + 1)]
 
+    def abel(deg, heads, kw):
+        calls["msm_abel"] += len(TP.abel_plan(deg, heads.shape[-1], kw))
+        return heads[..., :kw]
+
     monkeypatch.setattr(TP, "point_add_halves",
                         count("point_add", lambda deg, p: p[..., : p.shape[-1] // 2]))
     monkeypatch.setattr(TP, "point_add_planes", count("point_add", lambda deg, a, b: a))
     monkeypatch.setattr(TP, "_upsweep", upsweep)
+    monkeypatch.setattr(TP, "_abel", abel)
     monkeypatch.setattr(TP, "_tails", count(
         "msm_tails", lambda deg, levels, m, nb: C.infinity_planes(deg, m.shape[0], "cpu")))
-    monkeypatch.setattr(TP, "_abel", count("msm_abel", lambda deg, heads, kw: heads[..., :kw]))
     monkeypatch.setattr(TP, "_finish", count(
         "msm_finish", lambda deg, tot, head, c, k: C.infinity_planes(deg, k, "cpu")))
     for deg, lanes in max_lanes.items():

@@ -80,25 +80,29 @@
 // (base, plane stride, limb stride) the tails take).  The plan, r and T a
 // launch, is msm/upsweep_plan.py:upsweep_plan, as many levels a launch as
 // the shared memory holds: the first launch, 7/8 of the adds, one column a
-// lane (T = 128 G1, 64 G2; 3 levels); the later ones runs of T = 32 columns
-// (a warp's 128-byte line of a limb; 5 levels G1, 4 G2); and, once the
-// levels left fit one CTA, one launch of one CTA down to width 1: a G1
-// pass of 2^21 lanes in 4 launches (3 + 5 + 5 + 8 levels), a G2 pass of
-// 2^20 in 4 (3 + 4 + 4 + 9), where K4 took 21 and 20.  msm_abel is the same
-// kernel as one launch from the heads to the k W columns with only the
-// last level stored, one CTA a column (G1 k = 4, c = 8: 7 levels, 128 CTAs).  A lane
-// runs the add one thread a lane (G1) or on a pair of threads (G2,
+// lane (T = 128 G1, 64 G2; 3 levels); the later ones runs of a warp's
+// columns (T = 32 G1, 16 G2: a warp's 128-byte line of a limb of each plane
+// it reads; 5 levels); and, once the levels left fit one CTA, one launch of
+// one CTA down to width 1: a G1 pass of 2^21 lanes in 4 launches (3 + 5 + 5
+// + 8 levels), a G2 pass of 2^20 in 4 (3 + 5 + 5 + 7), where K4 took 21 and
+// 20.  msm_abel is the same kernel from the heads to the k W columns with
+// only a launch's last level stored, one CTA a column (G1 k = 4, c = 8: 7
+// levels, 128 CTAs): one launch where a column's tree fits a CTA (up to
+// c = 11 G1, 10 G2), past that a chain of launches, each one's columns the
+// next one's heads (msm/upsweep_plan.py:abel_plan; c = 16: 8 + 7 levels).
+// A lane runs the add one thread a lane (G1) or on a pair of threads (G2,
 // Fq2Pair), as K4, at K4's occupancy (three CTAs of 128 threads an SM); a
-// thread loops over its outputs, a barrier between
-// levels; the pairing and the formula are K4's, so every level equals the
-// K4 loop's limb for limb.
+// thread loops over its outputs, a barrier between levels; the pairing and
+// the formula are K4's, so every level equals the K4 loop's limb for limb.
 // What bounds it: the adds, 2^nb - 1 a pass (12 Fq products a G1 add, 42
 // over Fq2).  A G1 pass of 2^21 lanes is 0.240 ms by bytes (level 0 read
 // once, every level written once: 9 field elements an add, where the K4
 // loop moved 9 a lane a level) and 0.204 ms by the assumed product rate;
-// the add itself runs at K4's rate (tools/upsweep_plans.py times both), and
-// below the card's width every level is at least one dependent add a lane,
-// which no launch shape removes: the last launches are latency-bound.
+// the add itself runs at K4's rate (tools/msm_stages.py times the plan
+// launch by launch beside the K4 loop), a launch of many levels loses to
+// the loop what its last wave leaves idle, and below the card's width
+// every level is at least one dependent add a lane, which no launch shape
+// removes: the last launches are latency-bound.
 //
 // K5 point_double
 // Replaces: zklaim_tpu/ec/pallas_curve.py:_double_kernel, launched through
@@ -738,9 +742,10 @@ extern "C" int zk_msm_upsweep(int deg, const long long* levels, int nlevels, int
   return ups_launch(deg, lv, t, r, T, 1ll << (nlevels - 1 - t - r), 1, (cudaStream_t)stream);
 }
 
-// The Abel tree: heads (kw 2^r columns) -> out (kw columns) in r levels, one
-// CTA a column of out (msm/upsweep_plan.py:abel_levels); the inner levels stay
-// in shared memory.
+// One launch of the Abel tree: heads (kw 2^r columns) -> out (kw columns) in
+// r levels, one CTA a column of out (msm/upsweep_plan.py:abel_plan, whose
+// launches chain, out the next launch's heads); the inner levels stay in
+// shared memory.
 extern "C" int zk_msm_abel(int deg, const void* heads, long long h_ps, long long h_ls,
                            void* out, long long o_ps, long long o_ls, int r, long long kw,
                            void* stream) {

@@ -28,7 +28,8 @@ its plain version is msm.pippenger._tails_plain.
 `msm_upsweep_planes` (K4's third entry) builds every upsweep level of a pass
 from level 0 in the few launches of a plan (msm/upsweep_plan.py:
 upsweep_plan), `msm_abel_planes` (the fourth) halves a pass's Abel heads to
-its window columns in one launch, CUDA tensors only; their plain versions
+its window columns in the launches of abel_plan (one up to c = 11 G1, 10
+G2), CUDA tensors only; their plain versions
 are msm.pippenger._upsweep_plain and _abel_plain, the loops of the add.
 """
 
@@ -240,18 +241,21 @@ def msm_upsweep_planes(deg: int, level0: torch.Tensor, plan: list) -> list:
     return levels
 
 
-def msm_abel_planes(deg: int, heads: torch.Tensor, kw: int, r: int) -> torch.Tensor:
-    """The Abel tree of a pass in one launch: heads (3 deg, 16, kw 2^r),
-    b-major and window-minor, halved r times -> (3 deg, 16, kw), one CTA a
-    column (upsweep_plan.abel_levels), limb for limb what
-    pippenger._abel_plain gives; the inner levels stay in shared memory.
-    CUDA tensors only."""
+def msm_abel_planes(deg: int, heads: torch.Tensor, kw: int, plan: list) -> torch.Tensor:
+    """The Abel tree of a pass: heads (3 deg, 16, kw 2^R), b-major and
+    window-minor, halved R = sum(plan) times -> (3 deg, 16, kw), limb for
+    limb what pippenger._abel_plain gives.  One msm_abel launch an r of
+    `plan` (upsweep_plan.abel_plan), one CTA a column of its output, which is
+    the next launch's heads; the inner levels stay in shared memory.  CUDA
+    tensors only."""
     _check(deg, heads, "msm_abel heads")
     dev = K.launch_device("msm_abel", heads)
-    if r < 1 or heads.shape[2] != kw << r:
+    if any(r < 1 for r in plan) or heads.shape[2] != kw << sum(plan):
         raise ValueError(f"msm_abel: {heads.shape[2]} heads are not {kw} columns halved "
-                         f"{r} times")
-    out = torch.empty((3 * deg, 16, kw), dtype=torch.int32, device=dev)
-    K.launch("msm_abel", deg, heads.data_ptr(), heads.stride(0), heads.stride(1),
-             out.data_ptr(), out.stride(0), out.stride(1), r, kw, device=dev)
-    return out
+                         f"by the launches {plan}")
+    for r in plan:
+        out = torch.empty((3 * deg, 16, heads.shape[2] >> r), dtype=torch.int32, device=dev)
+        K.launch("msm_abel", deg, heads.data_ptr(), heads.stride(0), heads.stride(1),
+                 out.data_ptr(), out.stride(0), out.stride(1), r, out.shape[2], device=dev)
+        heads = out
+    return heads

@@ -24,8 +24,8 @@ launches of kernel msm_upsweep (gpu_curve.msm_upsweep_planes; four a pass of
 2^20 or 2^21 lanes, planned by msm/upsweep_plan.py), on CPU planes
 `_upsweep_plain`, the loop of the plain add over the halves.  The Abel tree
 -- the same halving of the heads down to the window columns -- is `_abel`:
-on CUDA planes ONE launch of kernel msm_abel (gpu_curve.msm_abel_planes), on
-CPU planes `_abel_plain`.  The kernels pair the columns as the loops do, so
+on CUDA planes kernel msm_abel (gpu_curve.msm_abel_planes; one launch up to
+c = 11 G1 and 10 G2, a chain of them past that), on CPU planes `_abel_plain`.  The kernels pair the columns as the loops do, so
 every level matches the JAX package's loops limb for limb.  The bucket-tail
 prefixes of step 3 -- for each of the W (B + 1) tail lanes, one add of an
 upsweep node per set bit of its prefix length, lowest level first -- are
@@ -63,7 +63,7 @@ from ..ec.gpu_curve import (
 from ..ff import montgomery as M
 from ..ff.limbs import LIMB_BITS, NUM_LIMBS
 from ..ff.montgomery import FQ
-from .upsweep_plan import abel_levels, upsweep_plan
+from .upsweep_plan import abel_plan, upsweep_plan
 
 # Max flat-batch lanes (k sums x W windows x points) per pass: the working
 # set is that many gathered rows plus about the same again in upsweep levels.
@@ -219,10 +219,10 @@ def _abel_plain(deg: int, heads: torch.Tensor, kw: int) -> torch.Tensor:
 
 
 def _abel(deg: int, heads: torch.Tensor, kw: int) -> torch.Tensor:
-    """The Abel tree of a pass: CUDA planes -> one msm_abel launch, CPU
-    planes -> _abel_plain."""
-    if heads.is_cuda and heads.shape[-1] > kw:
-        return msm_abel_planes(deg, heads, kw, abel_levels(deg, heads.shape[-1], kw))
+    """The Abel tree of a pass: CUDA planes -> the msm_abel launches of
+    abel_plan (one up to c = 11 G1, 10 G2), CPU planes -> _abel_plain."""
+    if heads.is_cuda:
+        return msm_abel_planes(deg, heads, kw, abel_plan(deg, heads.shape[-1], kw))
     return _abel_plain(deg, heads, kw)
 
 

@@ -17,23 +17,27 @@ columns to device memory, where kernel msm_tails reads them.
 The plan (`upsweep_plan`) takes as many levels a launch as a CTA's shared
 memory holds, `slots(deg)` points (48 KB: 512 G1 or 256 G2 points, 96 B a
 G1 and 192 B a G2 point).  The first launch, which holds 7/8 of the adds,
-gives a CTA one column a lane (T = THREADS / deg: 128 G1, 64 G2 columns, 3
-levels): no lane waits at a barrier for another's work.  Every later
-launch, on levels narrower than the card, takes runs of T = RUN = 32
-columns, so that a warp's loads of one limb are one 128-byte line, and
-more levels (5 G1, 4 G2).  Once the levels left fit one CTA (2^(a-1) <=
-slots for a levels to go), one launch of one CTA (T = 1) takes them all
-down to width 1.  A G1 pass of 2^21 lanes runs 4 launches (3 + 5 + 5 + 8
-levels), a G2 pass of 2^20 4 (3 + 4 + 4 + 9).  (The kernel gives a launch
-of fewer CTAs than the card has SMs CTAs of 384 threads, so its lanes take
-fewer turns at its first levels; that is a matter of the launcher, not of
-the plan.)
+gives a CTA one column a lane (T = THREADS / deg: 128 G1, 64 G2 columns),
+so no lane waits at a barrier for another's work, and 3 levels, the most
+its CTA holds (on the card 1 or 2 levels came out no faster;
+tools/msm_stages times all three).  Every later launch, on levels
+narrower than the card, takes runs of one column a lane of a warp (T =
+WARP / deg: 32 G1, 16 G2 columns), so that a warp's loads of one limb are
+one 128-byte line of each plane it reads, and more levels (5).
+Once the levels left fit one CTA (2^(a-1) <= slots for a levels to go),
+one launch of one CTA (T = 1) takes them all down to width 1.  A G1 pass of
+2^21 lanes runs 4 launches (3 + 5 + 5 + 8 levels), a G2 pass of 2^20 4 (3 +
+5 + 5 + 7).  (The kernel gives a launch of fewer CTAs than the card has
+SMs CTAs of 384 threads, so its lanes take fewer turns at its first
+levels; that is a matter of the launcher, not of the plan.)
 
 The Abel tree of a pass halves the (3 deg, 16, B KW) heads down to KW
-columns (B = 2^(c-1): c - 1 levels) in the same pairing: one launch whose
-last level is KW wide and whose inner levels stay in shared memory, one CTA
-a window column (T = 1: KW CTAs, each with B / 2 adds at its first level,
-one turn of its lanes a level; `abel_levels`).
+columns (B = 2^(c-1): c - 1 levels) in the same pairing, one CTA a window
+column (T = 1), the inner levels in shared memory and only a launch's last
+level stored (`abel_plan`).  A column's tree fits one CTA up to 2^10 heads
+G1 and 2^9 G2 (c = 11 and 10); a taller tree (c = 16: 2^15 heads a column)
+runs as a chain of such launches, each launch's columns the next one's
+heads, its levels split as evenly as the launches allow.
 
 `interpret_upsweep` and `interpret_abel` run a plan launch by launch and
 CTA by CTA with the kernel's index arithmetic (the columns a slot stands
@@ -49,7 +53,7 @@ from ..ec.gpu_curve import point_add_plain
 
 THREADS = 128                 # csrc/curve.cu:UPS_THREADS, threads a CTA of a wide launch
 SHARED_BYTES = 48 * 1024      # csrc/curve.cu:UPS_SHARED_MAX, shared memory a CTA
-RUN = 32                      # columns a CTA owns in a wide launch: a warp's 128-byte line of a limb
+WARP = 32                     # threads a warp: a narrow launch gives each lane of one warp a column
 POINT_BYTES = 3 * 8 * 4       # a G1 point in shared memory: 3 components of 8 32-bit words
 
 
@@ -58,38 +62,51 @@ def slots(deg: int) -> int:
     return SHARED_BYTES // (POINT_BYTES * deg)
 
 
-def upsweep_plan(deg: int, nb: int, held: int | None = None) -> list:
+def held_levels(deg: int, cols: int) -> int:
+    """The most levels r a launch of `cols` columns a CTA takes: 2^(r-1) cols
+    <= slots(deg)."""
+    return (slots(deg) // cols).bit_length()
+
+
+def upsweep_plan(deg: int, nb: int) -> list:
     """[(t, r, T)]: the launches that build levels 1 ... nb of a flat batch of
     2^nb lanes, launch i computing levels t + 1 ... t + r with T columns of
     level t + r a CTA (2^(nb-t-r) / T CTAs, 2^(r-1) T points of shared memory
-    each).  held: the points a CTA holds (default slots(deg); the tests pass
-    a small one to cut many launches from a small batch)."""
-    held = held or slots(deg)
-    plan, t = [], 0
+    each): the first at one column a lane of a CTA, then narrow_launches."""
+    if nb and 1 << (nb - 1) > slots(deg):
+        cols = min(THREADS // deg, slots(deg))
+        r = held_levels(deg, cols)
+        return [(0, r, cols)] + narrow_launches(deg, nb, r)
+    return narrow_launches(deg, nb, 0)
+
+
+def narrow_launches(deg: int, nb: int, t: int) -> list:
+    """The launches of levels t + 1 ... nb: runs of a warp's columns (T =
+    WARP / deg) until the levels left fit one CTA, then that CTA (T = 1)."""
+    plan = []
     while t < nb:
         a = nb - t
-        if 1 << (a - 1) <= held:              # the rest fits one CTA
-            plan.append((t, a, 1))
-            break
-        cols = min(THREADS // deg if t == 0 else RUN, held)
-        r = (held // cols).bit_length()       # the most levels with 2^(r-1) T <= held
+        if 1 << (a - 1) <= slots(deg):        # the rest fits one CTA
+            return plan + [(t, a, 1)]
+        cols = min(WARP // deg, slots(deg))
+        r = held_levels(deg, cols)
         plan.append((t, r, cols))
         t += r
     return plan
 
 
-def abel_levels(deg: int, width: int, kw: int) -> int:
-    """r: the Abel tree's levels, `width` heads to kw columns, r = log2(width /
-    kw), in one launch of one CTA a column (T = 1); raises where one CTA
-    cannot hold the tree of one column (2^(r-1) > slots(deg): window sizes
-    above 10 G1, 9 G2)."""
+def abel_plan(deg: int, width: int, kw: int) -> list:
+    """[r]: the launches of the Abel tree, `width` heads to kw columns in R =
+    log2(width / kw) levels, one CTA a column (T = 1); launch i halves its
+    heads r_i times.  One launch where a column's tree fits a CTA (2^(R-1)
+    <= slots(deg)), else the fewest launches that fit, their levels as even
+    as they go (the larger first)."""
     if width % kw or (width // kw) & (width // kw - 1):
         raise ValueError(f"msm_abel: {width} heads do not halve to {kw} columns")
-    r = (width // kw).bit_length() - 1
-    if r and 1 << (r - 1) > slots(deg):
-        raise ValueError(f"msm_abel: a tree of 2^{r} heads a column needs {1 << (r - 1)} points "
-                         f"of shared memory, more than a CTA's {slots(deg)}")
-    return r
+    levels = (width // kw).bit_length() - 1
+    most = held_levels(deg, 1)
+    n = -(-levels // most)
+    return [levels // n + (i < levels % n) for i in range(n)]
 
 
 def column(b: int, x: torch.Tensor, cols: int, w_out: int) -> torch.Tensor:
@@ -136,15 +153,16 @@ def interpret_upsweep(deg: int, level0: torch.Tensor, plan: list) -> list:
 
 
 def interpret_abel(deg: int, heads: torch.Tensor, kw: int) -> torch.Tensor:
-    """The Abel tree as kernel msm_abel computes it, one CTA a column: only
-    the last level leaves the CTA."""
-    r = abel_levels(deg, heads.shape[-1], kw)
-    if not r:
-        return heads.clone()
-    out = torch.full((3 * deg, 16, kw), -1, dtype=heads.dtype)
+    """The Abel tree as kernel msm_abel computes it under abel_plan, launch
+    by launch and one CTA a column: only a launch's last level leaves the
+    CTA, and it is the next launch's heads."""
+    out = heads.clone()
+    for r in abel_plan(deg, heads.shape[-1], kw):
+        last = torch.full((3 * deg, 16, out.shape[-1] >> r), -1, dtype=heads.dtype)
 
-    def put(s, idx, pts):
-        if s == r:
-            out[..., idx] = pts
-    _interpret_launch(deg, heads, r, 1, put)
+        def put(s, idx, pts, r=r, last=last):
+            if s == r:
+                last[..., idx] = pts
+        _interpret_launch(deg, out, r, 1, put)
+        out = last
     return out

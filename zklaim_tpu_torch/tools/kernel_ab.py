@@ -1,6 +1,7 @@
 """Two versions of the kernels on one card, in turns: every kernel case's
 device time from this tree and from another checkout, the probes' rows,
-and the SASS of the Montgomery product's loop.
+the stages of an MSM pass and a warm proof, and the SASS of the Montgomery
+product's loop.
 
     git archive <commit> | tar -x -C build/parent
     python -m zklaim_tpu_torch.tools.kernel_ab --other build/parent [--out FILE]
@@ -16,9 +17,17 @@ product, of one add step and of one step of two dependent instructions
 (LOP3, IMAD) with nothing beside them.  It also times, under labels that
 start "both trees:", K6 on ragged lane counts (1,023, 1,101 and
 mont_micro.WIDE_LANES + 77, K = 3) and K7's four ops at the tool's chain
-length (pallas_op_micro.CHAIN[0]), which a tree's case list may lack.  The
-worker uses only what both trees have.  Labels are matched with K8's
-" threads=..." taken off.
+length (pallas_op_micro.CHAIN[0]), which a tree's case list may lack.
+Then the path as a user meets it, with the tree's own tools: the stages of
+one G1 pass (tools.msm_stages, 2^16 points at c = 8: 2^21 lanes) and of
+one G2 pass (2^15 points: 2^20 lanes), the least of PASS_REPS repeats a
+stage, host clock after a synchronise at every mark; and
+tools.prove_profile at PAYLOADS (the reference benchmark's MAX_PL), whose
+"prove" rows run the prover as groth16.api.prove runs it PASS_REPS times
+after a warm-up (a warm proof's host clock spreads by a quarter between
+repeats: the table gives the least and the median).  The worker uses only
+what both trees have.  Labels are matched with K8's " threads=..." taken
+off.
 
 Then cuobjdump -sass of each tree's library: for mont_chain_kernel (K6:
 one product a loop step) and point_add_chain_kernel (K9: one complete G1
@@ -47,6 +56,8 @@ from pathlib import Path
 SEED = 20261016
 ROOT = Path(__file__).resolve().parents[2]
 CHAIN = (64, 256)
+PAYLOADS = 20
+PASS_REPS = 5
 
 WORKER = r'''
 import json, sys, time
@@ -54,9 +65,11 @@ import torch
 from zklaim_tpu_torch import kernels as K
 from zklaim_tpu_torch.kernels.cases import kernel_cases
 from zklaim_tpu_torch.utils.profiling import best_ms, device_ms
-from zklaim_tpu_torch.tools import grid_micro, mont_micro, padd_micro, pallas_op_micro
+from zklaim_tpu_torch.tools import (grid_micro, mont_micro, msm_stages, padd_micro,
+                                    pallas_op_micro, prove_profile)
 
 mode, seed, k1, k2 = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4])
+payloads, reps = int(sys.argv[5]), int(sys.argv[6])
 dev = torch.device("cuda:0")
 K.library()
 out = {"lib": K.BUILD_INFO["path"], "cases": {}, "probes": [], "one_warp_us_per_step": {}}
@@ -89,6 +102,10 @@ if mode != "plain":
                         ("op_chain u32mul", lambda k: pallas_op_micro.op_chain("u32mul", v, k), 64)):
         t1, t2 = (best_ms(lambda: fn(f * k), dev, runs=5) for k in (k1, k2))
         out["one_warp_us_per_step"][name] = (t2 - t1) / (f * (k2 - k1)) * 1e3
+    out["stages"] = (msm_stages.measure(dev, 16, runs=reps, deg=1)
+                     + msm_stages.measure(dev, 15, runs=reps, deg=2))
+    out["prove"] = [r for r in prove_profile.measure(dev, payloads, reps)
+                    if r["group"].startswith("prove ")]
 print("KERNEL_AB " + json.dumps(out))
 '''
 
@@ -98,7 +115,8 @@ NO_DEST = ("ST", "STG", "STS", "STL", "BRA", "EXIT", "BAR", "RED", "RET", "CALL"
 
 
 def run_worker(tree: Path, mode: str) -> dict:
-    proc = subprocess.run([sys.executable, "-c", WORKER, mode, str(SEED), *map(str, CHAIN)],
+    proc = subprocess.run([sys.executable, "-c", WORKER, mode, str(SEED), *map(str, CHAIN),
+                           str(PAYLOADS), str(PASS_REPS)],
                           cwd=tree, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"worker {mode} in {tree} failed:\n{proc.stderr[-4000:]}")
@@ -209,7 +227,7 @@ def measure(other: Path) -> dict:
     for i, (side, tree) in enumerate(order):
         runs[f"{i}:{side}"] = run_worker(tree, "kernels")
     rec = {"order": ["plain"] + [k for k in runs if k != "plain"], "cases": {}, "probes": {},
-           "one_warp_us_per_step": {}, "sass": {}}
+           "one_warp_us_per_step": {}, "passes": {}, "sass": {}}
     for key, run in runs.items():
         for label, ms in run["cases"].items():
             row = rec["cases"].setdefault(_label(label), {"plain_ms": None, "other": [], "this": []})
@@ -220,6 +238,7 @@ def measure(other: Path) -> dict:
         if key != "plain":
             rec["probes"].setdefault(key, run["probes"])
             rec["one_warp_us_per_step"][key] = run["one_warp_us_per_step"]
+            rec["passes"][key] = {"stages": run["stages"], "prove": run["prove"]}
     for side, key in (("other", "0:other"), ("this", "1:this")):
         funcs = sass_functions(runs[key]["lib"])
         rec["sass"][side] = {k: loop_stats(funcs, k) for k in
@@ -242,8 +261,25 @@ def format_rows(rec: dict) -> list:
         fmt = lambda v: " / ".join(f"{x:.4f}" for x in v) if v else "-"
         plain = f"{r['plain_ms']:.3f}" if r["plain_ms"] is not None else "-"
         rows.append(f"{label[:80]:80s} {plain:>10s} {fmt(r['other']):>19s} {fmt(r['this']):>19s}")
+    rows += pass_rows(rec["passes"])
     for side, s in rec["sass"].items():
         rows.append(f"SASS {side}: " + json.dumps(s))
+    return rows
+
+
+def pass_rows(passes: dict) -> list:
+    """A line a kernel process: its G1 and G2 pass's upsweep, abel and all
+    stages, and its warm proves' least and median."""
+    rows = []
+    for key, run in passes.items():
+        stages = {(r["deg"], r["stage"]): r["ms"] for r in run["stages"]}
+        total = {deg: sum(ms for (d, _), ms in stages.items() if d == deg) for deg in (1, 2)}
+        proves = sorted(r["ms"] for r in run["prove"] if r["phase"] == "TOTAL")
+        rows.append(f"{key:8s} G1 pass upsweep {stages[(1, 'upsweep')]:.3f} abel "
+                    f"{stages[(1, 'abel')]:.3f} all {total[1]:.3f} ms; G2 pass upsweep "
+                    f"{stages[(2, 'upsweep')]:.3f} abel {stages[(2, 'abel')]:.3f} all "
+                    f"{total[2]:.3f} ms; warm prove at N = {PAYLOADS} least "
+                    f"{proves[0]:.1f}, median {proves[len(proves) // 2]:.1f} ms")
     return rows
 
 

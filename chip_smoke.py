@@ -208,9 +208,8 @@ def _proof_launches(num_vars: int, num_primary: int, m: int, c: int = 8) -> dict
     """The launches of one proof_generate on an imported pk, derived from the
     key's dimensions.  The sums (msm/pippenger.py:msm_many): the four G1 sums
     A, B1 (num_vars points), H (m - 1) and L (num_vars - num_primary - 1) as
-    one batch, the G2 sum (num_vars) alone; k sums pad to k2, a power of two,
-    and their points to n2, the next power of two, or, past chunk =
-    MAX_LANES[deg] / (k2 W) points, to whole chunks, one pass each.  A pass
+    one batch, the G2 sum (num_vars) alone, padded as pippenger.padded_shape
+    says: n2 points a sum, one pass, or whole chunks, one pass each.  A pass
     of L lanes launches msm_upsweep once a launch of its plan
     (msm/upsweep_plan.py:upsweep_plan(deg, log2 L): four at 2^21 and 2^20
     lanes), msm_tails once and msm_abel once a launch of its Abel plan
@@ -219,7 +218,7 @@ def _proof_launches(num_vars: int, num_primary: int, m: int, c: int = 8) -> dict
     one msm_finish.  The transforms (groth16/qap.py:h_coefficients): seven
     of m, each one ntt_local and one ntt_stage a pass of
     gpu_ntt.global_passes."""
-    from zklaim_tpu_torch.msm.pippenger import MAX_LANES
+    from zklaim_tpu_torch.msm.pippenger import padded_shape
     from zklaim_tpu_torch.msm.upsweep_plan import abel_plan, upsweep_plan
     from zklaim_tpu_torch.ntt.gpu_ntt import global_passes
 
@@ -227,11 +226,8 @@ def _proof_launches(num_vars: int, num_primary: int, m: int, c: int = 8) -> dict
     out = {"msm_finish": 0, "msm_tails": 0, "msm_upsweep": 0, "msm_abel": 0, "point_add": 0}
     for deg, lengths in ((1, (num_vars, num_vars, m - 1, num_vars - num_primary - 1)),
                          (2, (num_vars,))):
-        k2 = 1 << (len(lengths) - 1).bit_length()
-        chunk = max(1, MAX_LANES[deg] // (k2 * W))
-        n = max(lengths)
-        n2 = max(2, 1 << (n - 1).bit_length())
-        passes, width = (1, n2) if n2 <= chunk else (-(-n // chunk), chunk)
+        k2, n2, chunk = padded_shape(deg, lengths, c)
+        passes, width = (1, n2) if n2 <= chunk else (n2 // chunk, chunk)
         lanes = k2 * W * width
         out["msm_finish"] += 1
         out["msm_tails"] += passes

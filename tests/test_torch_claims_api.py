@@ -31,6 +31,7 @@ from zklaim_tpu_torch.claims.api import (
 )
 from zklaim_tpu_torch.groth16.api import ProvingKey
 from zklaim_tpu_torch.groth16.qap import QAP
+from zklaim_tpu_torch.utils.profiling import recording
 
 # The suite runs as several worker processes on a few cores; torch's
 # intra-op threads would only contend with them.
@@ -179,8 +180,11 @@ def test_wire_bytes_equal_jax_package():
 def flow():
     """The zero-payload credential flow on the CPU: issuer -> one holder
     (a fresh context that imports the pk from bytes) -> verifier, then the
-    failures that need no payload."""
-    return entry.run_credential_path("cpu", num_payloads=0, requests=1, seed=7)
+    failures that need no payload; the program's spans and counters
+    recorded meanwhile (under "recorder")."""
+    with recording() as rec:
+        out = entry.run_credential_path("cpu", num_payloads=0, requests=1, seed=7)
+    return {**out, "recorder": rec}
 
 
 def test_zero_payload_flow_statuses(flow):
@@ -198,6 +202,49 @@ def test_zero_payload_flow_statuses(flow):
     assert (flow["num_vars"], flow["num_primary"], flow["m"]) == (1, 0, 1)
     assert flow["device"] == "cpu"
     assert all(v == 0 for v in flow["reprove_launches"].values())   # plain versions on the CPU
+
+
+def test_the_span_tree_of_a_proof_generate(flow):
+    """The spans of the flow: the issuer's setup, the holder's first proof
+    (a fresh context: circuit, pk import, witness, the prover's stages, the
+    proof's bytes), the reprove on the cached key, the verifier's three;
+    every span closed, and the sums' lanes counted once a proof (N = 0:
+    G1 4 sums of 2 points, 6 of them infinity; G2 1 of 2, 1)."""
+    rec = flow["recorder"]
+    spans = rec.spans
+    assert all(end is not None for _, end, _, _ in spans)
+
+    def at(name, parent=None):
+        return [i for i, (_, _, n, p) in enumerate(spans)
+                if n == name and (parent is None or p == parent)]
+
+    def children(i):
+        return [n for _, _, n, p in spans if p == i]
+
+    assert children(at("claims.trusted_setup")[0]) == [
+        "claims.circuit", "groth16.setup", "serde.pk_to_bytes"]
+    first, reprove = [i for i in at("claims.proof_generate")
+                      if "groth16.prove" in children(i)]
+    assert children(first) == ["claims.circuit", "claims.pk_import", "claims.witness",
+                               "groth16.prove", "claims.proof_bytes"]
+    assert children(reprove) == ["claims.witness", "groth16.prove", "claims.proof_bytes"]
+    prove = at("groth16.prove", first)[0]
+    assert children(prove) == ["groth16.upload", "groth16.witness_map", "groth16.check",
+                               "ntt.h", "msm.g1", "msm.g2", "groth16.finish"]
+    assert children(at("ntt.h", prove)[0]) == ["ntt.transforms", "ntt.pointwise",
+                                               "ntt.coset_intt"]
+    for deg in (1, 2):
+        g = at(f"msm.g{deg}", prove)[0]
+        assert children(g) == ["msm.pass", "msm.finish"]
+        assert children(at("msm.pass", g)[0]) == [
+            "msm.digits", "msm.sort", "msm.gather", "msm.upsweep", "msm.tails", "msm.abel"]
+    assert {"verifier.signature", "verifier.decode", "verifier.pairing"} <= {
+        n for _, _, n, _ in spans}
+    proofs = len(at("groth16.prove"))
+    counted = {}
+    for _, name, n in rec.counts:
+        counted[name] = counted.get(name, 0) + n
+    assert counted == {"msm.lanes": 10 * proofs, "msm.padded_lanes": 7 * proofs}
 
 
 def test_cli_bench_header_matches_jax_package():

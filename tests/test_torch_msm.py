@@ -100,12 +100,39 @@ def test_msm_many_padding_and_chunks_match_host(lengths, seeds, chunk):
     one finish that runs the sums side by side.  The second case is the
     prover's four G1 sums at N = 20 in miniature: A, B1 and L about half as
     long as H (508,203 points against 2^20 - 1), so three of the four point
-    axes are half infinity padding, in 8 chunks (64 at N = 20)."""
+    axes are half infinity padding, in 8 chunks (64 at N = 20).  The call
+    counts its lanes (4 sums of 24 and of 32 points) and the infinity rows
+    among them."""
+    from zklaim_tpu_torch.utils.profiling import recording
+
     cases = [_case(g1_generator, n, seed) for n, seed in zip(lengths, seeds)]
     pairs = [(_rows(1, pts), _scalars(sc)) for pts, sc in cases]
-    got = TP.msm_many(1, pairs, 4, chunk=chunk)
+    with recording() as rec:
+        got = TP.msm_many(1, pairs, 4, chunk=chunk)
     assert got.shape == (3, 16, len(lengths))
     assert C.planes_to_host_points(1, got) == [_host_sum(pts, sc) for pts, sc in cases]
+    lanes = {(20, 9, 5): 4 * 24, (16, 16, 31, 15): 4 * 32}[lengths]
+    assert [(name, n) for _, name, n in rec.counts] == [
+        ("msm.lanes", lanes), ("msm.padded_lanes", lanes - sum(lengths))]
+
+
+@pytest.mark.parametrize("num_payloads, lanes, padded", [(1, 163_840, 29_432),
+                                                         (20, 4_718_592, 1_637_308)])
+def test_msm_padding_of_the_benchmark_cells(num_payloads, lanes, padded):
+    """msm.padded_lanes over msm.lanes in a proof of the benchmark's two
+    circuits, from the key's dimensions (PERF.md, section 4) and the sums
+    of groth16.api.prove_sums: A, B1, H and L in one G1 call, B2 alone.
+    N = 20: A and B1 padded by 540,373 each, H by 1, L by 540,476, and the
+    G2 sum's 508,203 points to 524,288 (34.70 %); N = 1: 17.96 %."""
+    num_vars, num_primary, m = {1: (25_412, 6, 1 << 15), 20: (508_203, 102, 1 << 20)}[
+        num_payloads]
+    sums = {1: [num_vars, num_vars, m - 1, num_vars - num_primary - 1], 2: [num_vars]}
+    total = infinity = 0
+    for deg, lengths in sums.items():
+        k2, n2, _ = TP.padded_shape(deg, lengths)
+        total, infinity = total + k2 * n2, infinity + k2 * n2 - sum(lengths)
+    assert (total, infinity) == (lanes, padded)
+    assert round(100 * padded / lanes, 2) == {1: 17.96, 20: 34.70}[num_payloads]
 
 
 @pytest.mark.parametrize("max_lanes", [{1: 1 << 9, 2: 1 << 8}, {1: 1 << 14, 2: 1 << 13}])

@@ -39,16 +39,24 @@ def test_msm_stages_refuses_more_than_one_pass():
 
 
 def test_window_partials_marks_do_not_change_the_result():
+    """The stages of a pass are spans msm.digits ... msm.abel inside
+    msm.pass, one after another in the order tools.msm_stages lists them;
+    recording them leaves the partials as they are."""
     from zklaim_tpu_torch import bench
     from zklaim_tpu_torch.ff.limbs import to_tensor
+    from zklaim_tpu_torch.utils.profiling import recording
 
     rows = bench.make_points(1, 2, "cpu")
     scalars = to_tensor([[5] + [0] * 15, [0x8001] + [7] * 15], "cpu")
-    seen = []
-    marked = P._window_partials(1, [(rows, scalars)], 8, seen.append)
+    with recording() as rec:
+        spanned = P._window_partials(1, [(rows, scalars)], 8)
     plain = P._window_partials(1, [(rows, scalars)], 8)
-    assert seen == list(msm_stages.STAGES[:-1])
-    assert all(torch.equal(a, b) for a, b in zip(marked, plain))
+    assert [name for _, _, name, _ in rec.spans] == (
+        ["msm.pass"] + [f"msm.{s}" for s in msm_stages.STAGES[:-1]])
+    assert [parent for _, _, _, parent in rec.spans] == [-1] + [0] * 6
+    ends = [(start, end) for start, end, _, _ in rec.spans[1:]]
+    assert all(a[1] <= b[0] for a, b in zip(ends, ends[1:]))     # one after another
+    assert all(torch.equal(a, b) for a, b in zip(spanned, plain))
 
 
 def test_setup_profile_on_the_zero_payload_circuit():
@@ -83,30 +91,33 @@ def test_tool_rows_on_the_cpu(tool, kwargs, count):
 
 def test_h_split_is_h_plain_step_by_step():
     """The split of h_pipeline that prove_profile prints, on the small
-    circuit: groth16.api.h_plain with a mark hook calls it once a step, in
-    order, and gives the same H coefficients as without; an unsatisfied
-    witness raises before the transforms."""
+    circuit: groth16.api.h_plain opens a span a step, in order, and gives
+    the same H coefficients with recording on as without; an unsatisfied
+    witness raises before the transforms, every span closed."""
     from zklaim_tpu_torch.entry import tiny_circuit
     from zklaim_tpu_torch.ff.limbs import to_tensor
     from zklaim_tpu_torch.groth16 import api as A
     from zklaim_tpu_torch.groth16.qap import QAP
+    from zklaim_tpu_torch.utils.profiling import recording
 
     cs, witness = tiny_circuit()
     qap = QAP.for_cs(cs, "cpu")
     w_plain = to_tensor(A.witness_plain_limbs(witness), "cpu")
-    marks = []
-    h = A.h_plain(qap, w_plain, witness, mark=marks.append)
+    with recording() as rec:
+        h = A.h_plain(qap, w_plain, witness)
     assert torch.equal(h, A.h_plain(qap, w_plain, witness))
-    assert marks == [
-        "witness map (to_mont + constraint_evals)", "satisfaction check",
-        "3 intt + 3 coset_ntt (6 transforms, K1 scalings)", "pointwise (a b - c) / Z",
-        "coset_intt (7th transform, K1 scalings)", "from_mont"]
+    closed = [name for (_, end, name, _) in sorted(rec.spans, key=lambda s: s[1])]
+    assert closed == ["groth16.witness_map", "groth16.check", "ntt.transforms",
+                      "ntt.pointwise", "ntt.coset_intt", "ntt.h"]
+    assert [rec.spans[p][2] if p >= 0 else None for *_, p in rec.spans] == [
+        None, None, None, "ntt.h", "ntt.h", "ntt.h"]
     bad = w_plain.clone()
     bad[-1, 0] ^= 1
-    marks.clear()
-    with pytest.raises(ValueError, match="unsatisfied"):
-        A.h_plain(qap, bad, witness, mark=marks.append)
-    assert marks == ["witness map (to_mont + constraint_evals)"]
+    with recording() as rec:
+        with pytest.raises(ValueError, match="unsatisfied"):
+            A.h_plain(qap, bad, witness)
+    assert [(name, end is not None) for _, end, name, _ in rec.spans] == [
+        ("groth16.witness_map", True), ("groth16.check", True)]
 
 
 def test_ntt_profile_rows_on_the_cpu():

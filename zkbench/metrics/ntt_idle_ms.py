@@ -1,0 +1,9 @@
+"""ntt_idle_ms: the card's idle time while the innermost span the host was in
+was one of ntt.* (the seven transforms, the quotient, from_mont), in ms per
+completed request.  Moves proofs_per_s."""
+
+from zkbench.program_spans import layer_idle_ms
+
+
+def read(rec: dict):
+    return layer_idle_ms(rec, "ntt")

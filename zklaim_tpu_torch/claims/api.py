@@ -40,6 +40,7 @@ import struct
 from dataclasses import dataclass, field
 from enum import IntEnum
 
+from ..utils.profiling import span
 from . import signing
 from .circuit import (
     OP_EQ,
@@ -230,26 +231,32 @@ class Context:
     def _circuit(self) -> ZKlaimCircuit:
         n = self.num_payloads
         if n not in self._circuit_cache:
-            self._circuit_cache[n] = ZKlaimCircuit(n)
+            with span("claims.circuit"):
+                self._circuit_cache[n] = ZKlaimCircuit(n)
         return self._circuit_cache[n]
 
     def trusted_setup(self, rng=None) -> int:
-        """Groth16 setup for the current payload count (zklaim_trusted_setup)."""
+        """Groth16 setup for the current payload count (zklaim_trusted_setup);
+        span claims.trusted_setup."""
         import random
 
         from ..groth16.api import setup
         from . import serde
 
         rng = rng if rng is not None else random.SystemRandom()
-        circuit = self._circuit()
-        pk, vk, qap = setup(circuit.cs, rng, self.device)
-        self.pk = serde.pk_to_bytes(pk, self.num_payloads)
-        self.vk = serde.vk_to_bytes(vk)
-        self._pk_cache = (self.pk, self.num_payloads, pk, qap)
-        return ZKLAIM_OK
+        with span("claims.trusted_setup"):
+            circuit = self._circuit()
+            with span("groth16.setup"):
+                pk, vk, qap = setup(circuit.cs, rng, self.device)
+            with span("serde.pk_to_bytes"):
+                self.pk = serde.pk_to_bytes(pk, self.num_payloads)
+            self.vk = serde.vk_to_bytes(vk)
+            self._pk_cache = (self.pk, self.num_payloads, pk, qap)
+            return ZKLAIM_OK
 
     def proof_generate(self, rng=None) -> int:
-        """Prove the current payloads' predicates (zklaim_proof_generate)."""
+        """Prove the current payloads' predicates (zklaim_proof_generate);
+        span claims.proof_generate."""
         import random
 
         from .. import resolve_device
@@ -258,33 +265,37 @@ class Context:
         from . import serde
 
         rng = rng if rng is not None else random.SystemRandom()
-        circuit = self._circuit()
-        if (
-            self._pk_cache is not None
-            and self._pk_cache[0] == self.pk
-            and self._pk_cache[1] == self.num_payloads
-        ):
-            _, _, pk, qap = self._pk_cache
-        else:
-            device = resolve_device(self.device)
+        with span("claims.proof_generate"):
+            circuit = self._circuit()
+            if (
+                self._pk_cache is not None
+                and self._pk_cache[0] == self.pk
+                and self._pk_cache[1] == self.num_payloads
+            ):
+                _, _, pk, qap = self._pk_cache
+            else:
+                with span("claims.pk_import"):
+                    device = resolve_device(self.device)
+                    try:
+                        pk, n_pl = serde.pk_from_bytes(self.pk, device)
+                    except serde.SerdeError:
+                        return ZKLAIM_ERROR
+                    if n_pl != self.num_payloads:
+                        return ZKLAIM_ERROR
+                    qap = QAP.for_cs(circuit.cs, device)
+                    self._pk_cache = (self.pk, self.num_payloads, pk, qap)
+            inputs = [
+                (pl.pre, pl.data_ref, pl.op_positions()) for pl in self.payloads
+            ]
             try:
-                pk, n_pl = serde.pk_from_bytes(self.pk, device)
-            except serde.SerdeError:
+                with span("claims.witness"):
+                    witness = circuit.witness(inputs)
+                proof = prove(pk, qap, witness, rng)
+            except ValueError:
                 return ZKLAIM_ERROR
-            if n_pl != self.num_payloads:
-                return ZKLAIM_ERROR
-            qap = QAP.for_cs(circuit.cs, device)
-            self._pk_cache = (self.pk, self.num_payloads, pk, qap)
-        inputs = [
-            (pl.pre, pl.data_ref, pl.op_positions()) for pl in self.payloads
-        ]
-        try:
-            witness = circuit.witness(inputs)
-            proof = prove(pk, qap, witness, rng)
-        except ValueError:
-            return ZKLAIM_ERROR
-        self.proof = serde.proof_to_bytes(proof)
-        return ZKLAIM_OK
+            with span("claims.proof_bytes"):
+                self.proof = serde.proof_to_bytes(proof)
+            return ZKLAIM_OK
 
     def proof_verify(self) -> int:
         """1 if no/invalid proof, 0 if valid (mirrors zklaim_proof_verify)."""
@@ -294,16 +305,17 @@ class Context:
         if not self.proof:
             return 1
         try:
-            # vk parsing repeats per verify with identical bytes; the
-            # full validation (3 G2 subgroup checks) costs ~10 ms, so
-            # memoize on the raw bytes (proofs are always re-validated)
-            cache = getattr(self, "_vk_cache", None)
-            if cache is not None and cache[0] == self.vk:
-                vk = cache[1]
-            else:
-                vk = serde.vk_from_bytes(self.vk)
-                self._vk_cache = (self.vk, vk)
-            proof = serde.proof_from_bytes(self.proof)
+            with span("verifier.decode"):
+                # vk parsing repeats per verify with identical bytes; the
+                # full validation (3 G2 subgroup checks) costs ~10 ms, so
+                # memoize on the raw bytes (proofs are always re-validated)
+                cache = getattr(self, "_vk_cache", None)
+                if cache is not None and cache[0] == self.vk:
+                    vk = cache[1]
+                else:
+                    vk = serde.vk_from_bytes(self.vk)
+                    self._vk_cache = (self.vk, vk)
+                proof = serde.proof_from_bytes(self.proof)
         except serde.SerdeError:
             # malformed/off-curve material is an invalid proof, never a
             # crash (reference status-code convention, zklaim.c:354-358)
@@ -319,7 +331,9 @@ class Context:
     def verify(self) -> int:
         """Full check: signature over (hashes || vk), then proof
         (zklaim_ctx_verify)."""
-        if not self.verify_signature():
+        with span("verifier.signature"):
+            signed = self.verify_signature()
+        if not signed:
             return ZKLAIM_INVALID_SIGNATURE
         if self.proof_verify():
             return ZKLAIM_INVALID_PROOF

@@ -34,6 +34,7 @@ from ..ff.montgomery import FR
 from ..ff.params import R
 from ..msm.fixedbase import fixed_base_mul
 from ..msm.pippenger import msm_many, msm_pow2
+from ..utils.profiling import span
 from .qap import QAP
 
 
@@ -152,22 +153,21 @@ def witness_plain_limbs(witness) -> np.ndarray:
 
 
 def h_plain(qap: QAP, w_plain: torch.Tensor, witness=None,
-            what: str = "unsatisfied constraint", mark=None) -> torch.Tensor:
+            what: str = "unsatisfied constraint") -> torch.Tensor:
     """Plain witness limbs -> plain H coefficients (m - 1, 16).
 
     Raises ValueError(f"{what}: <first unsatisfied constraint>") before any
     MSM if the witness does not satisfy the constraints:
-    mont_mul(<A_j,w>, <B_j,w>) != <C_j,w> on some row.  mark(name), where
-    given, is called at the end of each step: the witness map, the
-    satisfaction check, QAP.h_coefficients' steps, from_mont."""
-    mark = mark or (lambda name: None)
-    evals = witness_evals(qap, w_plain)
-    mark("witness map (to_mont + constraint_evals)")
-    if not bool(satisfied(evals)):
+    mont_mul(<A_j,w>, <B_j,w>) != <C_j,w> on some row.  Spans
+    groth16.witness_map, groth16.check, then ntt.h (h_from_evals)."""
+    with span("groth16.witness_map"):
+        evals = witness_evals(qap, w_plain)
+    with span("groth16.check"):
+        ok = bool(satisfied(evals))
+    if not ok:
         where = qap.cs.first_unsatisfied(witness) if qap.cs is not None else None
         raise ValueError(f"{what}: {where}")
-    mark("satisfaction check")
-    return h_from_evals(qap, evals, mark)
+    return h_from_evals(qap, evals)
 
 
 def witness_evals(qap: QAP, w_plain: torch.Tensor):
@@ -183,13 +183,12 @@ def satisfied(evals) -> torch.Tensor:
     return (M.mont_mul(FR, a_ev, b_ev) == c_ev).all()
 
 
-def h_from_evals(qap: QAP, evals, mark=None) -> torch.Tensor:
-    """The constraint evaluations -> plain H coefficients (m - 1, 16)."""
-    mark = mark or (lambda name: None)
-    h = qap.h_coefficients(evals, mark)
-    h = M.from_mont(FR, h)[: qap.m - 1]
-    mark("from_mont")
-    return h
+def h_from_evals(qap: QAP, evals) -> torch.Tensor:
+    """The constraint evaluations -> plain H coefficients (m - 1, 16), in
+    span ntt.h: QAP.h_coefficients' transforms and quotient, from_mont."""
+    with span("ntt.h"):
+        h = qap.h_coefficients(evals)
+        return M.from_mont(FR, h)[: qap.m - 1]
 
 
 def prove_sums(pk: ProvingKey, w_plain: torch.Tensor, h: torch.Tensor, msm_c: int = 8):
@@ -203,40 +202,46 @@ def prove_sums(pk: ProvingKey, w_plain: torch.Tensor, h: torch.Tensor, msm_c: in
 
 
 def finish_proof(pk: ProvingKey, g1: torch.Tensor, g2: torch.Tensor, r: int, s: int) -> Proof:
-    """Host finish: the five sums as CurvePoints, blinded by (r, s)."""
-    ev_a, ev_b1, ev_h, ev_l = C.planes_to_host_points(1, g1)
-    ev_b2 = C.planes_to_host_points(2, g2)[0]
+    """Host finish (span groth16.finish): the five sums as CurvePoints,
+    blinded by (r, s)."""
+    with span("groth16.finish"):
+        ev_a, ev_b1, ev_h, ev_l = C.planes_to_host_points(1, g1)
+        ev_b2 = C.planes_to_host_points(2, g2)[0]
 
-    a_pt = pk.alpha_g1 + ev_a + pk.delta_g1 * r
-    b2_pt = pk.beta_g2 + ev_b2 + pk.delta_g2 * s
-    b1_pt = pk.beta_g1 + ev_b1 + pk.delta_g1 * s
-    c_pt = ev_l + ev_h + a_pt * s + b1_pt * r - pk.delta_g1 * (r * s % R)
-    return Proof(a=a_pt, b=b2_pt, c=c_pt)
+        a_pt = pk.alpha_g1 + ev_a + pk.delta_g1 * r
+        b2_pt = pk.beta_g2 + ev_b2 + pk.delta_g2 * s
+        b1_pt = pk.beta_g1 + ev_b1 + pk.delta_g1 * s
+        c_pt = ev_l + ev_h + a_pt * s + b1_pt * r - pk.delta_g1 * (r * s % R)
+        return Proof(a=a_pt, b=b2_pt, c=c_pt)
 
 
 def prove(pk: ProvingKey, qap: QAP, witness, rng, msm_c: int = 8) -> Proof:
-    """Groth16 prover.  witness: full assignment [1, primary..., aux...]
-    (list[int] or r1cs.system.WitnessVec)."""
-    r = rng.randrange(R)
-    s = rng.randrange(R)
+    """Groth16 prover (span groth16.prove).  witness: full assignment
+    [1, primary..., aux...] (list[int] or r1cs.system.WitnessVec)."""
+    with span("groth16.prove"):
+        r = rng.randrange(R)
+        s = rng.randrange(R)
 
-    w_plain = to_tensor(witness_plain_limbs(witness), qap.device)
-    h = h_plain(qap, w_plain, witness)
-    return finish_proof(pk, *prove_sums(pk, w_plain, h, msm_c), r, s)
+        with span("groth16.upload"):
+            w_plain = to_tensor(witness_plain_limbs(witness), qap.device)
+        h = h_plain(qap, w_plain, witness)
+        return finish_proof(pk, *prove_sums(pk, w_plain, h, msm_c), r, s)
 
 
 def verify(vk: VerifyingKey, primary: list, proof: Proof) -> bool:
-    """Strong-IC verification: primary must have exactly len(ic)-1 values."""
+    """Strong-IC verification: primary must have exactly len(ic)-1 values.
+    The public-input sum and the pairing are span verifier.pairing."""
     if len(primary) != len(vk.ic) - 1:
         return False
-    vk_x = vk.ic[0]
-    for v, pt in zip(primary, vk.ic[1:]):
-        vk_x = vk_x + pt * (v % R)
-    return pairing_product_is_one(
-        [
-            (-proof.a, proof.b),
-            (vk.alpha_g1, vk.beta_g2),
-            (vk_x, vk.gamma_g2),
-            (proof.c, vk.delta_g2),
-        ]
-    )
+    with span("verifier.pairing"):
+        vk_x = vk.ic[0]
+        for v, pt in zip(primary, vk.ic[1:]):
+            vk_x = vk_x + pt * (v % R)
+        return pairing_product_is_one(
+            [
+                (-proof.a, proof.b),
+                (vk.alpha_g1, vk.beta_g2),
+                (vk_x, vk.gamma_g2),
+                (proof.c, vk.delta_g2),
+            ]
+        )

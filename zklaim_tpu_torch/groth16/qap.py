@@ -23,6 +23,7 @@ from ..ff.limbs import to_tensor
 from ..ff.montgomery import FR
 from ..ff.params import R
 from ..ntt.radix2 import NTTDomain, get_domain
+from ..utils.profiling import span
 
 # reduce_wide is exact for int64 limbs < 2^47: at most 2^31 addends per row
 _MAX_ROW_NNZ = 1 << 31
@@ -130,20 +131,17 @@ class QAP:
             out.append(M.reduce_wide(FR, lazy))
         return tuple(out)
 
-    def h_coefficients(self, evals, mark=None) -> torch.Tensor:
+    def h_coefficients(self, evals) -> torch.Tensor:
         """H(x) = (A(x)B(x) - C(x)) / Z(x) coefficients, (m, 16) mont.
 
         evals: constraint_evals(w_mont).  The last coefficient is
-        identically zero (deg H = m - 2).  mark(name), where given, is
-        called at the end of each step (the six transforms, the pointwise
-        quotient, the seventh transform)."""
-        mark = mark or (lambda name: None)
+        identically zero (deg H = m - 2).  Spans ntt.transforms (3 intt +
+        3 coset_ntt), ntt.pointwise (the quotient) and ntt.coset_intt."""
         dom = self.domain
-        a_cos, b_cos, c_cos = (dom.coset_ntt(dom.intt(e)) for e in evals)
-        mark("3 intt + 3 coset_ntt (6 transforms, K1 scalings)")
-        num = M.sub_mod(FR, M.mont_mul(FR, a_cos, b_cos), c_cos)
-        quot = M.mont_mul(FR, num, dom.z_coset_inv_mont)
-        mark("pointwise (a b - c) / Z")
-        h = dom.coset_intt(quot)
-        mark("coset_intt (7th transform, K1 scalings)")
-        return h
+        with span("ntt.transforms"):
+            a_cos, b_cos, c_cos = (dom.coset_ntt(dom.intt(e)) for e in evals)
+        with span("ntt.pointwise"):
+            num = M.sub_mod(FR, M.mont_mul(FR, a_cos, b_cos), c_cos)
+            quot = M.mont_mul(FR, num, dom.z_coset_inv_mont)
+        with span("ntt.coset_intt"):
+            return dom.coset_intt(quot)

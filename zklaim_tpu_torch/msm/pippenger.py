@@ -63,6 +63,7 @@ from ..ec.gpu_curve import (
 from ..ff import montgomery as M
 from ..ff.limbs import LIMB_BITS, NUM_LIMBS
 from ..ff.montgomery import FQ
+from ..utils.profiling import count, span
 from .upsweep_plan import abel_plan, upsweep_plan
 
 # Max flat-batch lanes (k sums x W windows x points) per pass: the working
@@ -122,7 +123,7 @@ def infinity_rows(deg: int, n: int, device) -> torch.Tensor:
     return C.planes_to_rows(C.infinity_planes(deg, n, device))
 
 
-def _window_partials(deg: int, tables: list, c: int, mark=None):
+def _window_partials(deg: int, tables: list, c: int):
     """Flat-batch bucket phase: per-window (F(t_B), sum_{b<B} F(t_b)).
 
     tables: k pairs (rows (n, 48 deg) packed projective points, scalars
@@ -130,59 +131,60 @@ def _window_partials(deg: int, tables: list, c: int, mark=None):
     sums share one flat batch: window w of sum i is window i*W + w.
     Returns (tot_w, head_w), each (3 deg, 16, k*W) planes.  Both are
     group-linear in the points, so chunks may be summed before the finish.
-    mark(name), where given, is called at the end of each stage (digits,
-    sort, gather, upsweep, tails, abel): tools.msm_stages times them with it.
+    The pass is span msm.pass, its stages follow one another as spans
+    msm.digits, msm.sort, msm.gather, msm.upsweep, msm.tails and msm.abel
+    (tools.msm_stages times them).
     """
-    mark = mark or (lambda name: None)
-    k = len(tables)
-    n = tables[0][0].shape[0]
-    dev = tables[0][0].device
-    digits = torch.cat([signed_digits(s, c) for _, s in tables]).long()   # (k W, n)
-    mark("digits")
-    KW = digits.shape[0]
-    W = KW // k
-    B = 1 << (c - 1)
-    Mw = KW * n
-    nb = Mw.bit_length() - 1
-    if (1 << nb) != Mw:
-        raise ValueError("flat batch k*W*N must be a power of two (pad N and k)")
+    with span("msm.pass"):
+        k = len(tables)
+        n = tables[0][0].shape[0]
+        dev = tables[0][0].device
+        with span("msm.digits"):
+            digits = torch.cat([signed_digits(s, c) for _, s in tables]).long()   # (k W, n)
+        KW = digits.shape[0]
+        W = KW // k
+        B = 1 << (c - 1)
+        Mw = KW * n
+        nb = Mw.bit_length() - 1
+        if (1 << nb) != Mw:
+            raise ValueError("flat batch k*W*N must be a power of two (pad N and k)")
 
-    # table [P_0 .. P_k-1 | -P_0 .. -P_k-1 | infinity]; the gather index
-    # pre-resolves the sum (row + i n), digit sign (+ k n), digit zero (2 k n)
-    table = torch.cat([r for r, _ in tables] + [_neg_rows(deg, r) for r, _ in tables]
-                      + [infinity_rows(deg, 1, dev)])
-    mag = digits.abs()
-    win = torch.arange(KW, device=dev)[:, None]
-    keys = (win * (B + 1) + mag).reshape(-1)
-    src = (win // W) * n + torch.arange(n, device=dev)
-    idx = torch.where(mag == 0, 2 * k * n,
-                      src + torch.where(digits < 0, k * n, 0)).reshape(-1)
-    skeys, perm = torch.sort(keys, stable=True)
-    sidx = idx[perm]
-    mark("sort")
+        with span("msm.sort"):
+            # table [P_0 .. P_k-1 | -P_0 .. -P_k-1 | infinity]; the gather index
+            # pre-resolves the sum (row + i n), digit sign (+ k n), digit zero (2 k n)
+            table = torch.cat([r for r, _ in tables] + [_neg_rows(deg, r) for r, _ in tables]
+                              + [infinity_rows(deg, 1, dev)])
+            mag = digits.abs()
+            win = torch.arange(KW, device=dev)[:, None]
+            keys = (win * (B + 1) + mag).reshape(-1)
+            src = (win // W) * n + torch.arange(n, device=dev)
+            idx = torch.where(mag == 0, 2 * k * n,
+                              src + torch.where(digits < 0, k * n, 0)).reshape(-1)
+            skeys, perm = torch.sort(keys, stable=True)
+            sidx = idx[perm]
 
-    # bit-reversed storage: every upsweep level pairs contiguous halves
-    sidx_br = sidx[torch.from_numpy(_bitrev_np(nb)).to(dev)]
-    level0 = C.rows_to_planes(table.index_select(0, sidx_br))
-    mark("gather")
-    levels = _upsweep(deg, level0)
-    mark("upsweep")
+        with span("msm.gather"):
+            # bit-reversed storage: every upsweep level pairs contiguous halves
+            sidx_br = sidx[torch.from_numpy(_bitrev_np(nb)).to(dev)]
+            level0 = C.rows_to_planes(table.index_select(0, sidx_br))
+        with span("msm.upsweep"):
+            levels = _upsweep(deg, level0)
 
-    # global prefixes at every bucket tail: t_{w,b} = last sorted index
-    # with key <= w*(B+1)+b; block j of level t lives at rev_{nb-t}(j)
-    bucket_keys = (win * (B + 1) + torch.arange(B + 1, device=dev)).reshape(-1)
-    m = torch.searchsorted(skeys, bucket_keys, right=True)   # prefix lengths
-    acc = _tails(deg, levels, m, nb)
-    mark("tails")
+        with span("msm.tails"):
+            # global prefixes at every bucket tail: t_{w,b} = last sorted index
+            # with key <= w*(B+1)+b; block j of level t lives at rev_{nb-t}(j)
+            bucket_keys = (win * (B + 1) + torch.arange(B + 1, device=dev)).reshape(-1)
+            m = torch.searchsorted(skeys, bucket_keys, right=True)   # prefix lengths
+            acc = _tails(deg, levels, m, nb)
 
-    # Abel summation per window (window-start corrections cancel):
-    # B*F(t_{w,B}) - sum_{b<B} F(t_{w,b})
-    grid = acc.view(3 * deg, NUM_LIMBS, KW, B + 1)
-    tot_w = grid[..., B].contiguous()
-    heads = grid[..., :B].transpose(2, 3).reshape(3 * deg, NUM_LIMBS, B * KW)
-    heads = _abel(deg, heads, KW)                            # b-major, window-minor
-    mark("abel")
-    return tot_w, heads
+        with span("msm.abel"):
+            # Abel summation per window (window-start corrections cancel):
+            # B*F(t_{w,B}) - sum_{b<B} F(t_{w,b})
+            grid = acc.view(3 * deg, NUM_LIMBS, KW, B + 1)
+            tot_w = grid[..., B].contiguous()
+            heads = grid[..., :B].transpose(2, 3).reshape(3 * deg, NUM_LIMBS, B * KW)
+            heads = _abel(deg, heads, KW)                        # b-major, window-minor
+        return tot_w, heads
 
 
 def _add_halves_plain(deg: int, planes: torch.Tensor) -> torch.Tensor:
@@ -283,11 +285,12 @@ def _finish_plain(deg: int, tot: torch.Tensor, head: torch.Tensor, c: int, k: in
 
 
 def _finish(deg: int, tot: torch.Tensor, head: torch.Tensor, c: int, k: int) -> torch.Tensor:
-    """The finish of k sums: CUDA planes -> one msm_finish launch, CPU
-    planes -> _finish_plain."""
-    if tot.is_cuda:
-        return msm_finish_planes(deg, tot, head, c, k)
-    return _finish_plain(deg, tot, head, c, k)
+    """The finish of k sums (span msm.finish): CUDA planes -> one msm_finish
+    launch, CPU planes -> _finish_plain."""
+    with span("msm.finish"):
+        if tot.is_cuda:
+            return msm_finish_planes(deg, tot, head, c, k)
+        return _finish_plain(deg, tot, head, c, k)
 
 
 def _msm_chunked(deg: int, tables: list, c: int, chunk: int, k: int):
@@ -302,6 +305,20 @@ def _msm_chunked(deg: int, tables: list, c: int, chunk: int, k: int):
     return _finish(deg, tot, head, c, k)
 
 
+def padded_shape(deg: int, lengths: list, c: int = 8, chunk: int | None = None) -> tuple:
+    """(k2, n2, chunk) of msm_many over sums of `lengths` points: k padded
+    to k2, a power of two; every sum padded to n2 points, a power of two
+    (at least 2) or, past `chunk` (default MAX_LANES / (k2 W)), a multiple
+    of it."""
+    k2 = 1 << (len(lengths) - 1).bit_length()
+    n = max(lengths)
+    chunk = chunk or max(1, MAX_LANES[deg] // (k2 * (256 // c)))
+    n2 = max(2, 1 << (n - 1).bit_length())
+    if n2 > chunk:
+        n2 = -(-n // chunk) * chunk
+    return k2, n2, chunk
+
+
 def msm_many(deg: int, pairs: list, c: int = 8, chunk: int | None = None) -> torch.Tensor:
     """k sums sum_i scalars[i] * P_i at once -> (3 deg, 16, k) planes.
 
@@ -311,32 +328,32 @@ def msm_many(deg: int, pairs: list, c: int = 8, chunk: int | None = None) -> tor
     padded with infinity to a common power of two (the bit-reversed
     upsweep needs k*W*N = 2^K), k to a power of two with empty sums, and
     inputs above `chunk` points per sum (default MAX_LANES / (k W)) run
-    in chunks.
-    """
+    in chunks (padded_shape).  The call is span msm.g1 or msm.g2; it
+    counts the padded sums' points (msm.lanes) and the infinity rows among
+    them (msm.padded_lanes)."""
     k = len(pairs)
     for rows, scalars in pairs:
         if scalars.shape != (rows.shape[0], NUM_LIMBS) or rows.shape[1] != 48 * deg:
             raise ValueError(f"msm: rows {tuple(rows.shape)} with scalars {tuple(scalars.shape)}")
-    k2 = 1 << (k - 1).bit_length()
-    dev = pairs[0][0].device
-    n = max(r.shape[0] for r, _ in pairs)
-    chunk = chunk or max(1, MAX_LANES[deg] // (k2 * (256 // c)))
-    n2 = max(2, 1 << (n - 1).bit_length())
-    if n2 > chunk:
-        n2 = -(-n // chunk) * chunk
-    empty = torch.zeros((0, NUM_LIMBS), dtype=torch.int32, device=dev)
-    tables = []
-    for rows, scalars in list(pairs) + [(infinity_rows(deg, 0, dev), empty)] * (k2 - k):
-        pad = n2 - rows.shape[0]
-        if pad:
-            rows = torch.cat([rows, infinity_rows(deg, pad, dev)])
-            scalars = torch.cat([scalars, scalars.new_zeros((pad, NUM_LIMBS))])
-        tables.append((rows, scalars))
-    if n2 <= chunk:
-        out = _finish(deg, *_window_partials(deg, tables, c), c, k2)
-    else:
-        out = _msm_chunked(deg, tables, c, chunk, k2)
-    return out[..., :k]
+    with span(f"msm.g{deg}"):
+        lengths = [r.shape[0] for r, _ in pairs]
+        k2, n2, chunk = padded_shape(deg, lengths, c, chunk)
+        count("msm.lanes", k2 * n2)
+        count("msm.padded_lanes", k2 * n2 - sum(lengths))
+        dev = pairs[0][0].device
+        empty = torch.zeros((0, NUM_LIMBS), dtype=torch.int32, device=dev)
+        tables = []
+        for rows, scalars in list(pairs) + [(infinity_rows(deg, 0, dev), empty)] * (k2 - k):
+            pad = n2 - rows.shape[0]
+            if pad:
+                rows = torch.cat([rows, infinity_rows(deg, pad, dev)])
+                scalars = torch.cat([scalars, scalars.new_zeros((pad, NUM_LIMBS))])
+            tables.append((rows, scalars))
+        if n2 <= chunk:
+            out = _finish(deg, *_window_partials(deg, tables, c), c, k2)
+        else:
+            out = _msm_chunked(deg, tables, c, chunk, k2)
+        return out[..., :k]
 
 
 def msm_pow2(deg: int, rows: torch.Tensor, scalars: torch.Tensor, c: int = 8) -> torch.Tensor:

@@ -21,7 +21,7 @@ length (pallas_op_micro.CHAIN[0]), which a tree's case list may lack.
 Then the path as a user meets it, with the tree's own tools: the stages of
 one G1 pass (tools.msm_stages, 2^16 points at c = 8: 2^21 lanes) and of
 one G2 pass (2^15 points: 2^20 lanes), the least of PASS_REPS repeats a
-stage, host clock after a synchronise at every mark; and
+stage, host clock after a synchronise at the end of every stage; and
 tools.prove_profile at PAYLOADS (the reference benchmark's MAX_PL), whose
 "prove" rows run the prover as groth16.api.prove runs it PASS_REPS times
 after a warm-up (a warm proof's host clock spreads by a quarter between

@@ -1,12 +1,13 @@
 """Per-stage timing of the flat Pippenger pipeline on the current device.
 
 Counterpart of tools/msm_stages.py.  The pipeline runs eagerly here, so the
-stages are timed where they run: msm.pippenger._window_partials calls a mark
-at the end of each stage (digits; table and composite sort; packed gather
-in bit-reversed order; upsweep tree; bucket-tail prefixes; Abel reduction),
-the finish follows, and every mark synchronises the device.  One pass of
-the flat batch is timed (n x 256 / c lanes, at most MAX_LANES), the least
-of `runs` repeats a stage.
+stages are timed where they run: the spans msm.pippenger._window_partials
+opens around each stage (digits; table and composite sort; packed gather
+in bit-reversed order; upsweep tree; bucket-tail prefixes; Abel reduction)
+and _finish around the finish, recorded with a synchronise at each span's
+end (utils.profiling.recording(sync=device)).  One pass of the flat batch
+is timed (n x 256 / c lanes, at most MAX_LANES), the least of `runs`
+repeats a stage.
 
 On the card, `upsweep_launches` then times that pass's upsweep on the
 card's own clock (graph replay, utils.profiling.device_ms): the K4 loop it
@@ -25,13 +26,12 @@ from __future__ import annotations
 import argparse
 import ctypes
 import random
-import time
 
 import numpy as np
 import torch
 
 from .. import resolve_device
-from ..utils.profiling import card_label, device_ms, sync
+from ..utils.profiling import card_label, device_ms, recording, sync
 
 STAGES = ("digits", "sort", "gather", "upsweep", "tails", "abel", "finish")
 
@@ -56,20 +56,12 @@ def measure(device, log2n: int = 16, c: int = 8, runs: int = 3, deg: int = 1,
 
     best = dict.fromkeys(STAGES, float("inf"))
     for _ in range(runs + 1):                               # the first is the warm-up
-        times = {}
         sync(device)
-        last = [time.perf_counter()]
-
-        def mark(name):
-            sync(device)
-            now = time.perf_counter()
-            times[name] = (now - last[0]) * 1e3
-            last[0] = now
-
-        tot, head = P._window_partials(deg, [(rows, scalars)], c, mark)
-        P._finish(deg, tot, head, c, 1)
-        mark("finish")
-        best = {s: min(best[s], times[s]) for s in STAGES}
+        with recording(sync=device) as rec:
+            tot, head = P._window_partials(deg, [(rows, scalars)], c)
+            P._finish(deg, tot, head, c, 1)
+        ms = {name: own / 1e6 for (_, _, name, _), own in zip(rec.spans, rec.self_ns())}
+        best = {s: min(best[s], ms[f"msm.{s}"]) for s in STAGES}
     out, cum = [], 0.0
     for s in STAGES:
         cum += best[s]

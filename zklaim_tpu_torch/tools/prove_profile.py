@@ -2,13 +2,15 @@
 
 Counterpart of tools/prove_profile.py, with its phase names: witness build,
 witness limbs -> device, h_pipeline (witness map + NTTs), each of the five
-MSMs alone, device -> host decode; then h_pipeline again, split into its
-steps through the `mark` hooks of groth16.api.h_plain and
-QAP.h_coefficients.  Every mark synchronises the device, so a phase's time
-is its own.  Before the repetitions it times what a fresh holder pays once on the host (circuit build, QAP.for_cs, the proving key's
-import from bytes); after them, the prover as groth16.api.prove runs it
-(the four G1 sums as one msm_many, no synchronisation between the sums),
-and the verifier.
+MSMs alone, device -> host decode; then h_pipeline again, split into the
+spans that groth16.api.h_plain and QAP.h_coefficients open, each closed
+with a synchronise (utils.profiling.recording(sync=device)): a row a span,
+its self time, in the order the spans close.  Every mark synchronises the
+device too, so a phase's time is its own.  Before the repetitions it
+times what a fresh holder pays once on the host (circuit build,
+QAP.for_cs, the proving key's import from bytes); after them, the prover
+as groth16.api.prove runs it (the four G1 sums as one msm_many, no
+synchronisation between the sums), and the verifier.
 
     python -m zklaim_tpu_torch.tools.prove_profile [--payloads N] [--reps R] [--device cpu]
 
@@ -25,7 +27,7 @@ import time
 import torch
 
 from .. import resolve_device
-from ..utils.profiling import annotate, card_label, device_trace, sync
+from ..utils.profiling import card_label, device_trace, recording, sync
 
 
 class Marks:
@@ -46,6 +48,15 @@ class Marks:
         self.rows.append({"device": self.label, "group": group, "phase": name,
                           "ms": (now - self.last) * 1e3})
         self.last = now
+
+    def mark_spans(self, rec, prefix: str, group: str = "") -> None:
+        """A row a recorded span, its self time, in the order the spans
+        closed; the next mark counts from now."""
+        for (_, end, name, _), own in sorted(zip(rec.spans, rec.self_ns()),
+                                             key=lambda x: x[0][1]):
+            self.rows.append({"device": self.label, "group": group, "phase": prefix + name,
+                              "ms": own / 1e6})
+        self.last = time.perf_counter()
 
     def total(self, group: str = "") -> None:
         self.rows.append({"device": self.label, "group": group, "phase": "TOTAL",
@@ -118,7 +129,9 @@ def measure(device, num_payloads: int = 1, reps: int = 2, seed: int = 5) -> list
         w = circ.witness(inputs)
         w_plain = to_tensor(A.witness_plain_limbs(w), device)
         m.restart()
-        A.h_plain(qap, w_plain, w, mark=lambda name, g=g: m.mark(f"h: {name}", g))
+        with recording(sync=device) as rec:
+            A.h_plain(qap, w_plain, w)
+        m.mark_spans(rec, "h: ", g)
         m.total(g)
 
     # the prover as groth16.api.prove runs it
@@ -126,7 +139,7 @@ def measure(device, num_payloads: int = 1, reps: int = 2, seed: int = 5) -> list
         g = f"prove {rep}"
         w = circ.witness(inputs)
         m.restart()
-        with device_trace(f"prove_{rep}"), annotate("prove"):
+        with device_trace(f"prove_{rep}"):
             w_plain = to_tensor(A.witness_plain_limbs(w), device)
             h = A.h_plain(qap, w_plain, w)
             m.mark("upload + h_pipeline", g)

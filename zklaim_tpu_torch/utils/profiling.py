@@ -1,13 +1,22 @@
-"""Per-phase timing, optional device traces, and the timing helpers of the
-measuring path.
+"""The program's spans and counters, optional device traces, and the
+timing helpers of the measuring path.
 
-Counterpart of zklaim_tpu/utils/profiling.py: explicit phase timers with
-the benchmark CSV's phase names (issuer / prover / verifier) plus hooks
-into torch.profiler for device traces.
+Spans and counters: the layers of the normal path open `span("<layer>.<stage>")`
+around their stages (claims.*, groth16.*, ntt.*, msm.*, verifier.*) and
+count what their shapes say (`count("msm.lanes", n)`).  Both cost one flag
+test while nothing records.  `recording()` switches recording on for a
+with block and hands the block a `Recorder`, which keeps every span as
+(start_ns, end_ns, name, parent) and every count as (time_ns, name, n),
+all on `time.time_ns()`, the clock torch.profiler stamps its events with,
+so that a span can be laid over a device trace directly.  Spans never
+synchronise the card and never call torch.profiler.record_function (whose
+range can come back as an event on the card); a tool that wants a stage's
+own time passes `recording(sync=device)`, and each span then ends with a
+synchronise.  The normal path is single-threaded: the recorder takes no
+lock.
 
-Enable with ZKLAIM_PROFILE=1 (timing lines on stderr) and
-ZKLAIM_TRACE_DIR=/path (one Chrome trace per traced region, viewable in
-chrome://tracing or Perfetto).
+ZKLAIM_TRACE_DIR=/path writes one Chrome trace per `device_trace` region
+(viewable in chrome://tracing or Perfetto).
 
 `best_ms`, `device_ms` and `card_label` serve bench.py, the tools and
 chip_smoke.py: a call's time on the card is taken with CUDA events (it holds
@@ -21,51 +30,87 @@ from __future__ import annotations
 import contextlib
 import os
 import subprocess
-import sys
 import time
-from dataclasses import dataclass, field
 from functools import lru_cache
 
 import torch
 
 
-def _enabled() -> bool:
-    return os.environ.get("ZKLAIM_PROFILE", "") not in ("", "0")
+class Recorder:
+    """What one `recording()` block records.
+
+    spans: (start_ns, end_ns, name, parent) in the order the spans opened;
+    end_ns is None while a span is open, parent the index of the span open
+    when it opened (-1 where none was).  counts: (time_ns, name, n)."""
+
+    def __init__(self, sync=None):
+        self.sync = sync
+        self.spans: list = []
+        self.counts: list = []
+        self._open: list = []                       # indices of the open spans
+
+    def self_ns(self) -> list:
+        """Each span's self time, ns: its time less its children's (None
+        while it is open)."""
+        child_ns = [0] * len(self.spans)
+        for start, end, _, parent in self.spans:
+            if end is not None and parent >= 0:
+                child_ns[parent] += end - start
+        return [None if end is None else end - start - children
+                for (start, end, _, _), children in zip(self.spans, child_ns)]
 
 
-@dataclass
-class PhaseTimer:
-    """Accumulates wall-clock per named phase; thread-unsafe by design
-    (one per pipeline, like the reference's per-worker clocks).
+class _Span:
+    __slots__ = ("rec", "name", "index")
 
-    The clock is the host's: a phase that ends with work still queued on
-    the card must synchronise before it closes."""
+    def __init__(self, rec: Recorder, name: str):
+        self.rec, self.name = rec, name
 
-    times_ms: dict = field(default_factory=dict)
-    counts: dict = field(default_factory=dict)
+    def __enter__(self):
+        rec = self.rec
+        self.index = len(rec.spans)
+        rec.spans.append((time.time_ns(), None, self.name, rec._open[-1] if rec._open else -1))
+        rec._open.append(self.index)
 
-    @contextlib.contextmanager
-    def phase(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            dt = (time.perf_counter() - t0) * 1e3
-            self.times_ms[name] = self.times_ms.get(name, 0.0) + dt
-            self.counts[name] = self.counts.get(name, 0) + 1
-            if _enabled():
-                print(f"[zklaim-profile] {name}: {dt:.1f} ms", file=sys.stderr)
+    def __exit__(self, *exc):
+        rec = self.rec
+        if rec.sync is not None:
+            sync(rec.sync)
+        start, _, name, parent = rec.spans[self.index]
+        rec.spans[self.index] = (start, time.time_ns(), name, parent)
+        rec._open.pop()
+        return False
 
-    def csv_row(self, num_payloads: int, sizes: tuple) -> str:
-        """Reference benchmark CSV row (main_benchmark.c:163 schema)."""
-        pk_b, vk_b, proof_b = sizes
-        return (
-            f"{int(time.time())},{num_payloads},"
-            f"{self.times_ms.get('issuer', 0):.1f},"
-            f"{self.times_ms.get('prover', 0):.1f},"
-            f"{self.times_ms.get('verifier', 0):.1f},"
-            f"{pk_b},{vk_b},{proof_b}"
-        )
+
+_active: Recorder | None = None                     # the recorder of the open recording() block
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context manager around a stage of the program: recorded while a
+    `recording()` block is open, a shared no-op otherwise."""
+    if _active is None:
+        return _OFF
+    return _Span(_active, name)
+
+
+def count(name: str, n: int) -> None:
+    """Add n to counter `name`, while a `recording()` block is open."""
+    if _active is not None:
+        _active.counts.append((time.time_ns(), name, n))
+
+
+@contextlib.contextmanager
+def recording(sync=None):
+    """Record the program's spans and counters for the with block, which
+    receives the Recorder.  sync: a device to synchronise at each span's
+    end (the tools' stage times), None for none (the benchmark's)."""
+    global _active
+    outer, _active = _active, Recorder(sync)
+    try:
+        yield _active
+    finally:
+        _active = outer
 
 
 @contextlib.contextmanager
@@ -86,13 +131,6 @@ def device_trace(label: str = "zklaim"):
     with profile(activities=activities) as prof:
         yield
     prof.export_chrome_trace(os.path.join(trace_dir, f"{label}.json"))
-
-
-@contextlib.contextmanager
-def annotate(name: str):
-    """Named region visible in device traces (record_function)."""
-    with torch.profiler.record_function(name):
-        yield
 
 
 # ---------------------------------------------------------------------------

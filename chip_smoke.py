@@ -5,8 +5,9 @@
 
 1. Requires CUDA (exits non-zero without it) and prints the card's name
    and power limit.
-2. Builds the kernels K1-K9 and the whole-loop entries mont_pow (K1),
-   msm_upsweep, msm_tails and msm_abel (K4) and msm_finish (K5) from
+2. Builds the kernels K1-K9, the whole-loop entries mont_pow (K1),
+   msm_upsweep, msm_tails and msm_abel (K4) and msm_finish (K5), and the
+   MSM pass's front end msm_digits and msm_gather from
    zklaim_tpu_torch/csrc with nvcc,
    the sources side by side, and prints what ptxas says of every kernel
    (registers, stack, spill bytes) and one line a kernel with its
@@ -21,7 +22,7 @@
    padd_micro: kernels K6-K9), each at its original's shape and at a width that
    fills the card; K6's wide row is the 32-bit multiply-add rate the card
    sustains.  K6-K9 must have launched.
-   Then holds each of the fourteen entries against its plain PyTorch version
+   Then holds each of the sixteen entries against its plain PyTorch version
    on the card, at the shapes its path gives it (K6 also at the width that
    fills the card; K2 and K3 also on the four-step NTT's batches of
    transforms), limb for limb and, for K7's f32fma, bit for bit
@@ -53,11 +54,12 @@
    seconds, the byte sizes, the peak device memory and the launch counts.
    For each of the two paths the launch counts are set to 0 just before and
    read just after.  A proof must launch mont_mul, ntt_local, ntt_stage,
-   point_add, msm_upsweep, msm_tails, msm_abel and msm_finish and no
-   point_double; a proof_generate on an imported pk exactly what
-   _proof_launches derives from the key's dimensions, which for
-   ZKlaimCircuit(1) must be 2 msm_finish (one a finish), 3 msm_tails and
-   3 msm_abel (one each a pass: two G1 chunks and the G2 sum), 12
+   point_add, msm_digits, msm_gather, msm_upsweep, msm_tails, msm_abel and
+   msm_finish and no point_double; a proof_generate on an imported pk
+   exactly what _proof_launches derives from the key's dimensions, which
+   for ZKlaimCircuit(1) must be 2 msm_finish (one a finish), 3 msm_digits,
+   3 msm_gather, 3 msm_tails and 3 msm_abel (one each a pass: two G1
+   chunks and the G2 sum), 12
    msm_upsweep (four a pass), 7 ntt_local and 7 ntt_stage (one each a
    transform: K2 gathers the transform's rows itself) and 4 point_add (the
    sums of the two G1 chunks: no pass adds through point_add); the
@@ -69,8 +71,9 @@
    MB proving key), one holder, every failure status (the references and
    predicates of payload 0 and of the last payload tampered with): the
    byte sizes must equal SWEEP.csv's row for 20 payloads, a proof_generate
-   on an imported pk must launch what _proof_launches derives (80
-   msm_tails and 80 msm_abel: 64 G1 chunks and 16 G2; 320 msm_upsweep,
+   on an imported pk must launch what _proof_launches derives (80 each of
+   msm_digits, msm_gather, msm_tails and msm_abel: 64 G1 chunks and 16 G2;
+   320 msm_upsweep,
    four a pass; 160 point_add, the chunk sums; 14 ntt_stage: two K3 passes
    a transform of 2^20), trusted_setup mont_pow.  Prints each role's
    seconds, the pk import's, the peak device memory and the launches beside
@@ -141,6 +144,12 @@ KERNEL_ROWS = {
     "msm_abel": ("zklaim_tpu_torch/csrc/curve.cu",
                  "zklaim_tpu/ec/pallas_curve.py:222 through :369 (_padd_halves_soa) in the "
                  "loop of zklaim_tpu/msm/pippenger.py:354"),
+    "msm_digits": ("zklaim_tpu_torch/csrc/msm.cu",
+                   "none: zklaim_tpu/msm/pippenger.py:108 (signed_digits) and the keys of "
+                   ":300-304, left to XLA"),
+    "msm_gather": ("zklaim_tpu_torch/csrc/msm.cu",
+                   "none: zklaim_tpu/msm/pippenger.py:295-309 (the [P | -P | inf] table, "
+                   "jnp.take of the bit-reversed sorted index), left to XLA"),
     "msm_finish": ("zklaim_tpu_torch/csrc/curve.cu",
                    "zklaim_tpu/ec/pallas_curve.py:233 and :222 in the loops of "
                    "zklaim_tpu/msm/pippenger.py:366"),
@@ -223,13 +232,16 @@ def _proof_launches(num_vars: int, num_primary: int, m: int, c: int = 8) -> dict
     from zklaim_tpu_torch.ntt.gpu_ntt import global_passes
 
     W = 256 // c
-    out = {"msm_finish": 0, "msm_tails": 0, "msm_upsweep": 0, "msm_abel": 0, "point_add": 0}
+    out = {"msm_finish": 0, "msm_digits": 0, "msm_gather": 0, "msm_tails": 0, "msm_upsweep": 0,
+           "msm_abel": 0, "point_add": 0}
     for deg, lengths in ((1, (num_vars, num_vars, m - 1, num_vars - num_primary - 1)),
                          (2, (num_vars,))):
         k2, n2, chunk = padded_shape(deg, lengths, c)
         passes, width = (1, n2) if n2 <= chunk else (n2 // chunk, chunk)
         lanes = k2 * W * width
         out["msm_finish"] += 1
+        out["msm_digits"] += passes
+        out["msm_gather"] += passes
         out["msm_tails"] += passes
         out["msm_abel"] += passes * len(abel_plan(deg, (k2 * W) << (c - 1), k2 * W))
         out["msm_upsweep"] += passes * len(upsweep_plan(deg, lanes.bit_length() - 1))
@@ -315,9 +327,9 @@ def _wide_credential_phase(dev, card: str, narrow: dict) -> dict:
     res["launches"] = dict(K.LAUNCHES)
     res["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
     res["derived_proof_launches"] = _proof_launches(res["num_vars"], res["num_primary"], res["m"])
-    if res["derived_proof_launches"] != {"msm_finish": 2, "msm_tails": 80, "msm_upsweep": 320,
-                                         "msm_abel": 80, "ntt_local": 7, "ntt_stage": 14,
-                                         "point_add": 160}:
+    if res["derived_proof_launches"] != {"msm_finish": 2, "msm_digits": 80, "msm_gather": 80,
+                                         "msm_tails": 80, "msm_upsweep": 320, "msm_abel": 80,
+                                         "ntt_local": 7, "ntt_stage": 14, "point_add": 160}:
         raise AssertionError(f"ZKlaimCircuit({MAX_PL}): the derived launches "
                              f"{res['derived_proof_launches']} moved")
     print(f"[{card}] run_credential_path ZKlaimCircuit({MAX_PL}), 1 holder: "
@@ -489,8 +501,8 @@ def _multi_device_phase(dev, card: str, credential) -> dict:
     res["launches"] = dict(K.LAUNCHES)
     print(f"[{card}] multi-device phase launches {res['launches']}", flush=True)
     _require_launched(res["launches"], "the multi-device phase",
-                      ("mont_mul", "ntt_local", "ntt_stage", "point_add", "msm_upsweep",
-                       "msm_tails", "msm_abel", "msm_finish"))
+                      ("mont_mul", "ntt_local", "ntt_stage", "point_add", "msm_digits",
+                       "msm_gather", "msm_upsweep", "msm_tails", "msm_abel", "msm_finish"))
     return res
 
 
@@ -701,9 +713,9 @@ def main() -> None:
     # msm_upsweep a pass, point_add only for the chunk sums, one ntt_stage a transform
     cred["derived_proof_launches"] = _proof_launches(cred["num_vars"], cred["num_primary"],
                                                      cred["m"])
-    if cred["derived_proof_launches"] != {"msm_finish": 2, "msm_tails": 3, "msm_upsweep": 12,
-                                          "msm_abel": 3, "ntt_local": 7, "ntt_stage": 7,
-                                          "point_add": 4}:
+    if cred["derived_proof_launches"] != {"msm_finish": 2, "msm_digits": 3, "msm_gather": 3,
+                                          "msm_tails": 3, "msm_upsweep": 12, "msm_abel": 3,
+                                          "ntt_local": 7, "ntt_stage": 7, "point_add": 4}:
         raise AssertionError(f"ZKlaimCircuit(1): the derived launches "
                              f"{cred['derived_proof_launches']} moved")
     _check_credential(cred, "run_credential_path")

@@ -1,7 +1,8 @@
-"""Kernels K1-K9, mont_pow, msm_upsweep, msm_tails, msm_abel and msm_finish
-against their plain versions on the card (needs CUDA), K2 through both its entries, K2 and K3
-on batches of transforms (one launch a batch), and every kernel on its
-operands' card (needs two).
+"""Kernels K1-K9, mont_pow, msm_upsweep, msm_tails, msm_abel, msm_finish,
+msm_digits and msm_gather against their plain versions on the card (needs
+CUDA), a pass and msm_many on the card against the CPU path, K2 through
+both its entries, K2 and K3 on batches of transforms (one launch a batch),
+and every kernel on its operands' card (needs two).
 
 Run on a machine with an NVIDIA GPU (no jax needed there, hence
 --noconftest):
@@ -263,6 +264,166 @@ def test_msm_abel_chains_a_tree_past_one_cta(cuda):
     assert K.LAUNCHES["msm_abel"] == before + 2
     want = TP.msm_pow2(1, rows, scalars, c=8)
     assert C.planes_to_host_points(1, got) == C.planes_to_host_points(1, want)
+
+
+def _front_scalars(n, rnd, device):
+    """(n, 16) scalar limbs sliced 4 rows into a wider table: 0, 1, r - 1, a
+    top window that takes a carry, random scalars, and a zero tail of n / 4
+    as msm_many pads a sum."""
+    from zklaim_tpu_torch.ff.limbs import ints_to_limbs, to_tensor
+    from zklaim_tpu_torch.ff.params import R
+
+    sc = [0, 1, R - 1, (1 << 253) | ((1 << 248) - 1)] + [rnd.randrange(R) for _ in range(n + 4)]
+    sc[4 + n - n // 4 : 4 + n] = [0] * (n // 4)
+    return to_tensor(ints_to_limbs(sc), device)[4 : 4 + n]
+
+
+def test_msm_digits_at_every_window_size_on_sliced_tables(cuda):
+    """msm_digits on k = 1 and 4 sums at c = 4, 8 and 16, on scalar tables
+    sliced from wider ones (_front_scalars), equals _digit_keys_plain, keys
+    and index, one launch a call."""
+    from zklaim_tpu_torch.ec.gpu_curve import msm_digit_keys
+    from zklaim_tpu_torch.msm.pippenger import _digit_keys_plain
+
+    rnd = random.Random(21)
+    for k in (1, 4):
+        tables = [_front_scalars(96, rnd, cuda) for _ in range(k)]
+        assert tables[0].storage_offset() == 4 * 16
+        for c in (4, 8, 16):
+            before = K.LAUNCHES["msm_digits"]
+            got = msm_digit_keys(tables, c)
+            assert K.LAUNCHES["msm_digits"] == before + 1
+            assert max_abs_err(got, _digit_keys_plain(tables, c)) == 0, (k, c)
+
+
+def test_msm_gather_matches_the_plain_table_gather(cuda):
+    """msm_gather, G1 and G2, on 1, 2 and 4 sums of rows sliced from wider
+    tables, with infinity rows and a row whose y is 0 among the points and
+    zero and negative digits, on fewer lanes than a CTA takes and on many
+    CTAs, equals _signed_gather_plain (the [P | -P | infinity] table,
+    index_select of the bit-reversed sorted index, rows to planes) limb for
+    limb, one launch a call."""
+    import numpy as np
+
+    from zklaim_tpu_torch.ec import curve as C
+    from zklaim_tpu_torch.ec.gpu_curve import msm_gather_planes
+    from zklaim_tpu_torch.kernels.cases import random_points
+    from zklaim_tpu_torch.msm.pippenger import (
+        _digit_keys_plain, _signed_gather_plain, infinity_rows,
+    )
+
+    rng, rnd = np.random.default_rng(22), random.Random(22)
+    for deg in (1, 2):
+        for k, n, c in ((1, 2, 16), (4, 64, 8), (2, 512, 4)):
+            rows = [C.planes_to_rows(random_points(deg, n + 3, rng, cuda))[3:] for _ in range(k)]
+            rows[0][1, 16 * deg : 32 * deg] = 0
+            rows[-1][n - 1] = infinity_rows(deg, 1, cuda)[0]
+            scalars = [_front_scalars(n, rnd, cuda) for _ in range(k)]
+            keys, idx = _digit_keys_plain(scalars, c)
+            perm = torch.sort(keys, stable=True)[1]
+            nb = keys.shape[0].bit_length() - 1
+            before = K.LAUNCHES["msm_gather"]
+            got = msm_gather_planes(deg, rows, idx, perm, nb)
+            assert K.LAUNCHES["msm_gather"] == before + 1
+            want = _signed_gather_plain(deg, rows, idx, perm, nb)
+            assert max_abs_err(got, want) == 0, (deg, k, n, c)
+
+
+def test_window_partials_and_msm_many_on_card_match_cpu(cuda):
+    """A pass of four G1 sums on the card (_window_partials: msm_digits, the
+    sort, msm_gather, then the upsweep, tails and Abel kernels) equals the
+    CPU path limb for limb and counts msm.front_kernels once; msm_many over
+    three G1 sums of unequal lengths in three chunks, and a G2 msm_pow2,
+    give the CPU's planes limb for limb."""
+    import numpy as np
+
+    from zklaim_tpu_torch.ec import curve as C
+    from zklaim_tpu_torch.kernels.cases import random_points
+    from zklaim_tpu_torch.msm import pippenger as TP
+    from zklaim_tpu_torch.utils.profiling import recording
+
+    rng, rnd = np.random.default_rng(23), random.Random(23)
+
+    def table(deg, n):
+        return (C.planes_to_rows(random_points(deg, n, rng, "cpu")), _front_scalars(n, rnd, "cpu"))
+
+    def on(tables, dev):
+        return [(r.to(dev), s.to(dev)) for r, s in tables]
+
+    tables = [table(1, 16) for _ in range(4)]
+    with recording() as rec:
+        got = TP._window_partials(1, on(tables, cuda), 8)
+    assert [(name, n) for _, name, n in rec.counts if name == "msm.front_kernels"] == [
+        ("msm.front_kernels", 1)]
+    want = TP._window_partials(1, tables, 8)
+    assert max_abs_err([g.cpu() for g in got], want) == 0
+    pairs = [table(1, n) for n in (40, 17, 33)]
+    got = TP.msm_many(1, on(pairs, cuda), 8, chunk=16)
+    assert max_abs_err(got.cpu(), TP.msm_many(1, pairs, 8, chunk=16)) == 0
+    (rows, scalars), = [table(2, 20)]
+    got = TP.msm_pow2(2, rows.to(cuda), scalars.to(cuda), 8)
+    assert max_abs_err(got.cpu(), TP.msm_pow2(2, rows, scalars, 8)) == 0
+
+
+def test_msm_many_enqueues_without_waiting_for_the_card(cuda):
+    """After a warm-up call (the kernels, their schedules and the point
+    constants on the card), msm_many over three G1 sums in three chunks and
+    a G2 msm_pow2 make no call that waits for the card -- no synchronise, no
+    read back, no upload from pageable memory: torch's sync debug mode
+    raises on any -- so the host enqueues a proof's passes ahead of it."""
+    import numpy as np
+
+    from zklaim_tpu_torch.ec import curve as C
+    from zklaim_tpu_torch.kernels.cases import random_points
+    from zklaim_tpu_torch.msm import pippenger as TP
+
+    rng, rnd = np.random.default_rng(24), random.Random(24)
+    pairs = [(C.planes_to_rows(random_points(1, n, rng, cuda)), _front_scalars(n, rnd, cuda))
+             for n in (40, 17, 33)]
+    g2 = (C.planes_to_rows(random_points(2, 20, rng, cuda)), _front_scalars(20, rnd, cuda))
+    want = TP.msm_many(1, pairs, 8, chunk=16), TP.msm_pow2(2, *g2, 8)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = TP.msm_many(1, pairs, 8, chunk=16), TP.msm_pow2(2, *g2, 8)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert max_abs_err(list(got), list(want)) == 0
+
+
+def test_front_wrappers_reject_bad_operands(cuda):
+    from zklaim_tpu_torch.ec.gpu_curve import msm_digit_keys, msm_gather_planes
+
+    s = torch.zeros((32, 16), dtype=torch.int32, device=cuda)
+    unaligned = torch.zeros(32 * 16 + 1, dtype=torch.int32, device=cuda)[1:].view(32, 16)
+    for bad in (lambda: msm_digit_keys([s.cpu()], 8),                          # CPU scalars
+                lambda: msm_digit_keys([s.long()], 8),                         # not int32
+                lambda: msm_digit_keys([s[:, :8]], 8),                         # 8 limbs
+                lambda: msm_digit_keys([torch.zeros_like(s).repeat(1, 2)[:, :16]], 8),
+                lambda: msm_digit_keys([unaligned], 8),                        # 4 bytes off
+                lambda: msm_digit_keys([s, s[:16]], 8),                        # two lengths
+                lambda: msm_digit_keys([], 8),                                 # no sum
+                lambda: msm_digit_keys([s] * 65, 8),                           # past the table
+                lambda: msm_digit_keys([s], 5),                                # c does not divide 16
+                lambda: msm_digit_keys([s], 0)):
+        with pytest.raises(ValueError):
+            bad()
+    rows = torch.zeros((32, 48), dtype=torch.int32, device=cuda)
+    idx = torch.zeros(1 << 10, dtype=torch.int32, device=cuda)
+    perm = torch.zeros(1 << 10, dtype=torch.int64, device=cuda)
+    for bad in (lambda: msm_gather_planes(1, [rows.cpu()], idx, perm, 10),      # CPU rows
+                lambda: msm_gather_planes(1, [rows.long()], idx, perm, 10),     # not int32
+                lambda: msm_gather_planes(1, [rows.repeat(2, 1)[::2]], idx, perm, 10),
+                lambda: msm_gather_planes(2, [rows], idx, perm, 10),            # 48 words: no G2 row
+                lambda: msm_gather_planes(1, [rows], idx.cpu(), perm, 10),      # CPU index
+                lambda: msm_gather_planes(1, [rows], idx, perm.cpu(), 10),      # CPU permutation
+                lambda: msm_gather_planes(1, [rows], idx.long(), perm, 10),     # index not int32
+                lambda: msm_gather_planes(1, [rows], idx, perm.int(), 10),      # perm not int64
+                lambda: msm_gather_planes(1, [rows], idx[:512], perm, 10),      # 2^9 lanes
+                lambda: msm_gather_planes(1, [rows], idx, perm.repeat(2)[::2], 10),
+                lambda: msm_gather_planes(1, [rows], idx, perm, 32)):            # 2^32 lanes
+        with pytest.raises(ValueError):
+            bad()
 
 
 def test_point_add_g2_on_strided_views(cuda):

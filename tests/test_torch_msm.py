@@ -16,6 +16,7 @@ import pytest
 
 import jax
 import jax.numpy as jnp
+from jax import lax
 import torch
 
 from zklaim_tpu.ec import jaxcurve as JC
@@ -27,6 +28,7 @@ from zklaim_tpu.msm.fixedbase import FixedBaseTable as JFixedBase
 from zklaim_tpu_torch.ec import curve as C
 from zklaim_tpu_torch.ec.hostcurve import g1_generator, g2_generator
 from zklaim_tpu_torch.ff.params import R
+from zklaim_tpu_torch.ff.montgomery import FQ
 from zklaim_tpu_torch.groth16.convert import host_point
 from zklaim_tpu_torch.msm import fixedbase as TF
 from zklaim_tpu_torch.msm import pippenger as TP
@@ -34,6 +36,7 @@ from zklaim_tpu_torch.msm import pippenger as TP
 # The suite runs as several worker processes on a few cores; torch's
 # intra-op threads would only contend with them.
 torch.set_num_threads(1)
+FQ_P = FQ.p
 
 
 def _case(gen, n, seed):
@@ -70,6 +73,140 @@ def test_signed_digits_match_jax():
         want = JP.signed_digits(jnp.asarray(sc), c)
         got = TP.signed_digits(torch.from_numpy(sc.astype(np.int32)), c)
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def _jax_keys_and_index(sc_limbs, c):
+    """The sort keys and gather index of the JAX package's _window_partials
+    (one sum), from its signed_digits."""
+    digits = JP.signed_digits(jnp.asarray(sc_limbs), c)
+    W, n = digits.shape
+    B = 1 << (c - 1)
+    mag = jnp.abs(digits)
+    keys = (jnp.arange(W, dtype=jnp.int32)[:, None] * (B + 1) + mag).reshape(-1)
+    src = jnp.broadcast_to(jnp.arange(n, dtype=jnp.int32), (W, n))
+    idx = jnp.where(mag == 0, 2 * n, src + jnp.where(digits < 0, n, 0)).reshape(-1)
+    return keys, idx
+
+
+def _front_scalars(rnd, n):
+    """n scalars: 0, 1, R - 1, a top window that takes a carry, random ones,
+    and a zero tail as msm_many pads a sum."""
+    sc = [0, 1, R - 1, (1 << 253) | ((1 << 248) - 1)] + [rnd.randrange(R) for _ in range(n - 4)]
+    return sc[: n - n // 4] + [0] * (n // 4)
+
+
+@pytest.mark.parametrize("c", [4, 8, 16])
+def test_digit_keys_match_jax(c):
+    """_digit_keys_plain, the plain version of kernel msm_digits: for one
+    sum its int32 keys and index are the JAX package's, and the stable sort
+    of the keys carries the index as lax.sort_key_val does; for four sums
+    sum i's lanes are the one-sum lanes of its scalars, windows shifted by
+    i W, index shifted by i n, the negative and zero offsets by k n."""
+    rnd = random.Random(100 + c)
+    n, W, B = 16, 256 // c, 1 << (c - 1)
+    tables = [ints_to_limbs(_front_scalars(rnd, n)) for _ in range(4)]
+    keys, idx = TP._digit_keys_plain([torch.from_numpy(t.astype(np.int32)) for t in tables[:1]], c)
+    jkeys, jidx = _jax_keys_and_index(tables[0], c)
+    assert keys.dtype == idx.dtype == torch.int32
+    np.testing.assert_array_equal(keys.numpy(), np.asarray(jkeys))
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
+    _, perm = torch.sort(keys, stable=True)
+    _, jsidx = lax.sort_key_val(jkeys, jidx)
+    np.testing.assert_array_equal(idx[perm].numpy(), np.asarray(jsidx))
+
+    k = len(tables)
+    keys4, idx4 = TP._digit_keys_plain([torch.from_numpy(t.astype(np.int32)) for t in tables], c)
+    assert keys4.shape == idx4.shape == (k * W * n,)
+    for i, t in enumerate(tables):
+        one_keys, one_idx = TP._digit_keys_plain([torch.from_numpy(t.astype(np.int32))], c)
+        lanes = slice(i * W * n, (i + 1) * W * n)
+        assert torch.equal(keys4[lanes], one_keys + i * W * (B + 1))
+        want = torch.where(one_idx == 2 * n, 2 * k * n,
+                           torch.where(one_idx >= n, one_idx - n + k * n, one_idx) + i * n)
+        assert torch.equal(idx4[lanes], want.int())
+
+
+def _jax_points(deg, pts):
+    f = JC.FQ_OPS if deg == 1 else JC.FQ2_OPS
+    return f, JC.host_points_to_proj(f, pts)
+
+
+@pytest.mark.parametrize("deg", [1, 2])
+def test_signed_gather_matches_jax(deg):
+    """_signed_gather_plain, the plain version of kernel msm_gather, on one
+    sum: level 0 equals the JAX package's gather -- the packed table [P | -P
+    | infinity], the sorted index in bit-reversed order (_apply_bitrev),
+    jnp.take, the rows unpacked to planes -- limb for limb, with zero and
+    negative digits and infinity among the points."""
+    rnd = random.Random(110 + deg)
+    n, c = 8, 8
+    gen = g1_generator() if deg == 1 else g2_generator()
+    pts = [gen * rnd.randrange(1, R) for _ in range(n)]
+    pts[2] = gen.infinity(gen.b)
+    sc = ints_to_limbs(_front_scalars(rnd, n))
+    keys, idx = TP._digit_keys_plain([torch.from_numpy(sc.astype(np.int32))], c)
+    skeys, perm = torch.sort(keys, stable=True)
+    nb = keys.shape[0].bit_length() - 1
+    got = TP._signed_gather_plain(deg, [_rows(deg, pts)], idx, perm, nb)
+
+    f, jpts = _jax_points(deg, pts)
+    x, y, z = jpts
+    table = jnp.concatenate([JP._pack_rows(f, jpts), JP._pack_rows(f, (x, f.neg(y), z)),
+                             JP._pack_rows(f, JC.point_infinity(f, (1,)))], axis=0)
+    jkeys, jidx = _jax_keys_and_index(sc, c)
+    _, jsidx = lax.sort_key_val(jkeys, jidx)
+    want = JP._unpack_planes(f, jnp.take(table, JP._apply_bitrev(jsidx, nb), axis=0))
+    assert got.shape == (3 * deg, 16, 1 << nb)
+    for plane, w in zip(got, want):
+        np.testing.assert_array_equal(plane.numpy(), np.asarray(w).astype(np.int32))
+
+
+def _gather_lane_by_lane(deg, rows, idx, perm, nb):
+    """Kernel msm_gather's arithmetic, one lane at a time on Python
+    integers: sorted lane s = rev_nb(q), v = idx[perm[s]], the infinity row
+    at v = 2 k n, else row v mod k n of the tables laid end to end, its y
+    limbs replaced by those of (p - y) mod 2^256 (0 for y = 0) where
+    v >= k n."""
+    k, n = len(rows), rows[0].shape[0]
+    inf = TP.infinity_rows(deg, 1, "cpu")[0]
+    out = []
+    for q in range(1 << nb):
+        s = int(format(q, f"0{nb}b")[::-1], 2) if nb else 0
+        v = int(idx[perm[s]])
+        if v >= 2 * k * n:
+            out.append(inf)
+            continue
+        row = rows[(v % (k * n)) // n][v % n].clone()
+        if v >= k * n:
+            for h in range(deg):
+                ys = slice(16 * deg + 16 * h, 16 * deg + 16 * (h + 1))
+                y = sum(int(limb) << (16 * b) for b, limb in enumerate(row[ys]))
+                neg = (FQ_P - y) % (1 << 256) if y else 0
+                row[ys] = torch.tensor([(neg >> (16 * b)) & 0xFFFF for b in range(16)])
+        out.append(row)
+    return C.rows_to_planes(torch.stack(out))
+
+
+@pytest.mark.parametrize("deg, k", [(1, 4), (2, 2)])
+def test_signed_gather_lane_arithmetic(deg, k):
+    """Kernel msm_gather's lane arithmetic (the bit reversal computed per
+    lane, the index read through the permutation, the sum's table found by
+    v mod k n, y negated limb by limb) against _signed_gather_plain on k
+    sums, with a row whose y is 0 among the negated ones."""
+    rnd = random.Random(120 + deg)
+    n, c = 4, 16
+    gen = g1_generator() if deg == 1 else g2_generator()
+    rows = [_rows(deg, [gen * rnd.randrange(1, R) for _ in range(n)]) for _ in range(k)]
+    rows[0][1, 16 * deg : 32 * deg] = 0                      # y = 0: its negation is 0
+    rows[k - 1][3] = TP.infinity_rows(deg, 1, "cpu")[0]
+    scalars = [torch.from_numpy(ints_to_limbs(_front_scalars(rnd, n)).astype(np.int32))
+               for _ in range(k)]
+    scalars[0][1] = torch.from_numpy(ints_to_limbs([R - 1]).astype(np.int32))[0]
+    keys, idx = TP._digit_keys_plain(scalars, c)
+    _, perm = torch.sort(keys, stable=True)
+    nb = keys.shape[0].bit_length() - 1
+    got = TP._signed_gather_plain(deg, rows, idx, perm, nb)
+    assert torch.equal(got, _gather_lane_by_lane(deg, rows, idx, perm, nb))
 
 
 @pytest.mark.parametrize("c", [4, 8])
@@ -137,19 +274,22 @@ def test_msm_padding_of_the_benchmark_cells(num_payloads, lanes, padded):
 
 @pytest.mark.parametrize("max_lanes", [{1: 1 << 9, 2: 1 << 8}, {1: 1 << 14, 2: 1 << 13}])
 def test_chip_smoke_launch_rule_matches_prove_sums(monkeypatch, max_lanes):
-    """chip_smoke._proof_launches derives a proof's msm_upsweep, msm_tails,
-    msm_abel, msm_finish and point_add launches from the key's dimensions;
+    """chip_smoke._proof_launches derives a proof's msm_digits, msm_gather,
+    msm_upsweep, msm_tails, msm_abel, msm_finish and point_add launches from
+    the key's dimensions;
     the prover's sums (groth16.api.prove_sums) make that many calls of the
     launching functions (an upsweep and an Abel tree as many launches as
     their plans have).  The functions are stubbed with shape-only
     stand-ins, so only the pipeline's control flow runs: with small
     MAX_LANES both sums run in chunks (G1 16 passes, G2 5), with large ones
     in one pass each.  No pass adds through
-    point_add_halves: only the chunk sums launch point_add."""
+    point_add_halves: only the chunk sums launch point_add; every pass
+    launches msm_digits and msm_gather once each."""
     import chip_smoke
     from zklaim_tpu_torch.groth16.api import ProvingKey, prove_sums
 
-    calls = {"msm_upsweep": 0, "msm_tails": 0, "msm_abel": 0, "msm_finish": 0, "point_add": 0}
+    calls = {"msm_digits": 0, "msm_gather": 0, "msm_upsweep": 0, "msm_tails": 0, "msm_abel": 0,
+             "msm_finish": 0, "point_add": 0}
 
     def count(name, fn):
         def stub(*args):
@@ -169,6 +309,9 @@ def test_chip_smoke_launch_rule_matches_prove_sums(monkeypatch, max_lanes):
     monkeypatch.setattr(TP, "point_add_halves",
                         count("point_add", lambda deg, p: p[..., : p.shape[-1] // 2]))
     monkeypatch.setattr(TP, "point_add_planes", count("point_add", lambda deg, a, b: a))
+    monkeypatch.setattr(TP, "_digit_keys", count("msm_digits", TP._digit_keys_plain))
+    monkeypatch.setattr(TP, "_signed_gather", count(
+        "msm_gather", lambda deg, rows, idx, perm, nb: C.infinity_planes(deg, 1 << nb, "cpu")))
     monkeypatch.setattr(TP, "_upsweep", upsweep)
     monkeypatch.setattr(TP, "_abel", abel)
     monkeypatch.setattr(TP, "_tails", count(
@@ -186,7 +329,8 @@ def test_chip_smoke_launch_rule_matches_prove_sums(monkeypatch, max_lanes):
     prove_sums(pk, w, _scalars([1] * (m - 1)))
     want = chip_smoke._proof_launches(num_vars, num_primary, m)
     assert calls == {k: want[k] for k in calls}
-    assert want["msm_tails"] == want["msm_abel"] == (21 if max_lanes[1] == 1 << 9 else 2)
+    assert want["msm_tails"] == want["msm_abel"] == want["msm_digits"] == want["msm_gather"] == (
+        21 if max_lanes[1] == 1 << 9 else 2)
     assert want["msm_upsweep"] == (21 if max_lanes[1] == 1 << 9 else 4)
     assert want["point_add"] == (42 if max_lanes[1] == 1 << 9 else 0)
 

@@ -18,6 +18,8 @@ layout of the kernels -- one (3 deg, 16, n) tensor, G2 planes ordered
 
 from __future__ import annotations
 
+from functools import lru_cache
+
 import numpy as np
 import torch
 
@@ -102,8 +104,23 @@ class FqOps:
 
     @staticmethod
     def ones(batch_shape, device):
-        one = to_tensor(FQ.one_mont, device)
-        return one.expand(tuple(batch_shape) + (NUM_LIMBS,)).contiguous()
+        return _ones(_mont_one(1, str(device)), batch_shape)
+
+
+@lru_cache(maxsize=None)
+def _mont_one(deg: int, device: str) -> torch.Tensor:
+    """1 in Montgomery form over Fq (16 limbs) or Fq2 ((2, 16)) on the
+    device, copied there once: an upload from pageable host memory makes
+    the host wait for the card, so the point constants of a pass or an MSM
+    are made on the card from this one."""
+    one = np.zeros((deg, NUM_LIMBS), dtype=np.int32)
+    one[0] = FQ.one_mont
+    return to_tensor(one if deg == 2 else one[0], device)
+
+
+def _ones(one: torch.Tensor, batch_shape) -> torch.Tensor:
+    """A new contiguous batch of `one` (never a view of the cached tensor)."""
+    return one.expand(tuple(batch_shape) + one.shape).clone(memory_format=torch.contiguous_format)
 
 
 def _b3_g2_mont() -> np.ndarray:
@@ -169,9 +186,7 @@ class Fq2Ops(FqOps):
 
     @staticmethod
     def ones(batch_shape, device):
-        one = np.zeros((2, NUM_LIMBS), dtype=np.int32)
-        one[0] = FQ.one_mont
-        return to_tensor(one, device).expand(tuple(batch_shape) + (2, NUM_LIMBS)).contiguous()
+        return _ones(_mont_one(2, str(device)), batch_shape)
 
 
 FQ_OPS = FqOps()

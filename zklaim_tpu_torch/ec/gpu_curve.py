@@ -31,6 +31,13 @@ upsweep_plan), `msm_abel_planes` (the fourth) halves a pass's Abel heads to
 its window columns in the launches of abel_plan (one up to c = 11 G1, 10
 G2), CUDA tensors only; their plain versions
 are msm.pippenger._upsweep_plain and _abel_plain, the loops of the add.
+
+`msm_digit_keys` and `msm_gather_planes` are a pass's front end
+(csrc/msm.cu): the signed digits of k scalar tables as the sort's keys and
+the pre-resolved gather index (kernel msm_digits), and the sorted lanes
+gathered, bit-reversed and sign-resolved into level 0's planes (kernel
+msm_gather), CUDA tensors only; their plain versions are
+msm.pippenger._digit_keys_plain and _signed_gather_plain.
 """
 
 from __future__ import annotations
@@ -259,3 +266,75 @@ def msm_abel_planes(deg: int, heads: torch.Tensor, kw: int, plan: list) -> torch
                  out.data_ptr(), out.stride(0), out.stride(1), r, out.shape[2], device=dev)
         heads = out
     return heads
+
+
+FRONT_MAX_SUMS = 64                  # csrc/msm.cu:FRONT_MAX_SUMS
+
+
+def _sum_tables(tensors: list, width: int, what: str):
+    """The k tables of a pass's sums, (n, width) int32, contiguous and
+    16-byte aligned (the kernels read them as 16-byte vectors), one n for
+    all -> (n, their base pointers as the C launchers read them)."""
+    if not 1 <= len(tensors) <= FRONT_MAX_SUMS:
+        raise ValueError(f"{what}: {len(tensors)} sums (1 to {FRONT_MAX_SUMS})")
+    n = tensors[0].shape[0] if tensors[0].dim() == 2 else -1
+    for i, t in enumerate(tensors):
+        K.check_planes(t, f"{what} {i}")
+        if t.dim() != 2 or t.shape != (n, width) or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{what} {i}: expected a contiguous, 16-byte aligned ({n}, {width}) "
+                             f"table, got shape {tuple(t.shape)} strides {t.stride()}")
+    if n < 1:
+        raise ValueError(f"{what}: sums of {n} points")
+    return n, (ctypes.c_longlong * len(tensors))(*[t.data_ptr() for t in tensors])
+
+
+def msm_digit_keys(scalars: list, c: int) -> tuple:
+    """A pass's digits in one launch of kernel msm_digits: k (n, 16)
+    plain-domain scalar tables -> (keys, idx), each (k W n,) int32, W =
+    256 / c.  Lane (i W + w) n + j is window w of scalar j of sum i: key
+    (i W + w) (B + 1) + |d| (B = 2^(c-1), d its signed digit), index 2 k n
+    for d = 0, i n + j for d > 0 and k n + i n + j for d < 0.  Limb for limb
+    what pippenger._digit_keys_plain gives.  CUDA tensors only."""
+    n, table = _sum_tables(scalars, NUM_LIMBS, "msm_digits scalars")
+    dev = K.launch_device("msm_digits", *scalars)
+    if c < 1 or LIMB_BITS % c:
+        raise ValueError(f"msm_digits: window size {c} does not divide {LIMB_BITS}")
+    k, W, B = len(scalars), 256 // c, 1 << (c - 1)
+    if k * W * (B + 1) > 1 << 31 or 2 * k * n >= 1 << 31:
+        raise ValueError(f"msm_digits: {k} sums of {n} points at c = {c} overflow int32 keys")
+    keys = torch.empty(k * W * n, dtype=torch.int32, device=dev)
+    idx = torch.empty_like(keys)
+    K.launch("msm_digits", ctypes.addressof(table), k, n, c, keys.data_ptr(), idx.data_ptr(),
+             device=dev)
+    return keys, idx
+
+
+@lru_cache(maxsize=None)
+def _infinity_row_on(deg: int, device: str) -> torch.Tensor:
+    """The packed infinity row on the device, made once."""
+    return C.planes_to_rows(C.infinity_planes(deg, 1, device)).reshape(-1)
+
+
+def msm_gather_planes(deg: int, rows: list, idx: torch.Tensor, perm: torch.Tensor,
+                      nb: int) -> torch.Tensor:
+    """Level 0 of a pass in one launch of kernel msm_gather: k (n, 48 deg)
+    packed point tables, the gather index idx (2^nb,) int32 of
+    msm_digit_keys and the stable sort's permutation perm (2^nb,) int64 ->
+    (3 deg, 16, 2^nb) planes, lane q the point of sorted lane rev_nb(q):
+    infinity where idx[perm[.]] = 2 k n, else row idx mod k n of the
+    tables laid end to end, its y negated where idx >= k n.  Limb for limb
+    what pippenger._signed_gather_plain gives.  The index is trusted: it
+    must come from msm_digit_keys over the same k and n.  CUDA tensors only."""
+    n, table = _sum_tables(rows, 48 * deg, f"msm_gather G{deg} rows")
+    if not 0 <= nb <= 31 or 2 * len(rows) * n >= 1 << 31:
+        raise ValueError(f"msm_gather: 2^{nb} lanes over {len(rows)} sums of {n} points")
+    for name, t, dtype in (("idx", idx, torch.int32), ("perm", perm, torch.int64)):
+        if t.dtype != dtype or t.shape != (1 << nb,) or not t.is_contiguous():
+            raise ValueError(f"msm_gather: {name} must be a contiguous (2^{nb},) {dtype} "
+                             f"vector, got {t.dtype} {tuple(t.shape)}")
+    dev = K.launch_device("msm_gather", *rows, idx, others=(perm,))
+    inf = _infinity_row_on(deg, str(dev))
+    out = torch.empty((3 * deg, 16, 1 << nb), dtype=torch.int32, device=dev)
+    K.launch("msm_gather", deg, ctypes.addressof(table), len(rows), n, idx.data_ptr(),
+             perm.data_ptr(), nb, inf.data_ptr(), out.data_ptr(), device=dev)
+    return out

@@ -1,6 +1,7 @@
-"""Build, load and launch the hand-written CUDA kernels (K1-K9, and the
+"""Build, load and launch the hand-written CUDA kernels (K1-K9, the
 whole-loop entries mont_pow of K1, msm_tails, msm_upsweep and msm_abel of
-K4 and msm_finish of K5).
+K4 and msm_finish of K5, and a Pippenger pass's front end, msm_digits and
+msm_gather).
 
 The sources in ../csrc are compiled at first use, one nvcc process a
 source and all of them at once, then linked into one shared library with a
@@ -37,7 +38,7 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("mont_mul.cu", "ntt.cu", "curve.cu", "probes.cu")
+SOURCES = ("mont_mul.cu", "ntt.cu", "curve.cu", "msm.cu", "probes.cu")
 HEADERS = ("field.cuh", "rcb.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
@@ -61,6 +62,9 @@ KERNELS = {
     "msm_abel": ("zk_msm_abel", [_I, _P, _I64, _I64, _P, _I64, _I64, _I, _I64]),
     "msm_finish": ("zk_msm_finish", [_I, _P, _I64, _I64, _P, _I64, _I64, _P, _I64, _I64,
                                      _I, _I, _I, _P, _I, _I, _I]),
+    # a pass's front end (csrc/msm.cu)
+    "msm_digits": ("zk_msm_digits", [_P, _I, _I64, _I, _P, _P]),
+    "msm_gather": ("zk_msm_gather", [_I, _P, _I, _I64, _P, _P, _I, _P, _P]),
     # the probes of the measuring path (csrc/probes.cu)
     "mont_chain": ("zk_mont_chain", [_P, _I64, _P, _I64, _I64, _I, _I]),
     "op_chain": ("zk_op_chain", [_I, _P, _P, _I64, _I]),
@@ -71,8 +75,8 @@ KERNELS = {
 # the kernels a proof must launch (mont_pow only where a key is serialized:
 # the issuer's trusted_setup; point_double only in scalar_mul / msm_ladder),
 # and the probes only the measuring path runs
-PATH_KERNELS = ("mont_mul", "mont_pow", "ntt_local", "ntt_stage", "point_add", "msm_upsweep",
-                "msm_tails", "msm_abel", "msm_finish")
+PATH_KERNELS = ("mont_mul", "mont_pow", "ntt_local", "ntt_stage", "point_add", "msm_digits",
+                "msm_gather", "msm_upsweep", "msm_tails", "msm_abel", "msm_finish")
 PROOF_KERNELS = tuple(k for k in PATH_KERNELS if k != "mont_pow")
 PROBE_KERNELS = ("mont_chain", "op_chain", "point_add_tiled", "point_add_chain")
 

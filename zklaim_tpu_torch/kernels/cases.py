@@ -20,7 +20,8 @@ of the G2 pass (2^20 lanes) at c = 8, msm_abel on those passes' heads,
 msm_finish on the partials of four G1 sums and of one G2 sum at
 c = 8, and on one small odd shape.  Their plain versions, like K3's at
 2^22, are loops of hundreds of plain products or point operations and take
-seconds: `plain_once` tells a caller to run and time them once.
+seconds: `plain_once` tells a caller to run and time them once.  A pass's
+front end, msm_digits and msm_gather, runs on the same two passes.
 
 Inputs: random field elements below p; random curve points as host
 multiples of the generator (a small pool, gathered to the lane count),
@@ -189,8 +190,9 @@ def kernel_cases(device, n_field: int = 1 << 15, n_ntt: int = 1 << 15, n_ntt_big
     (batched_ntt_cases); the doubling also at 4 G1
     lanes and 1 G2 lane, where a launch is all host), msm_upsweep, msm_abel
     and msm_tails at the credential path's shapes (upsweep_cases,
-    tails_cases), mont_pow and msm_finish at theirs (loop_cases), then the
-    four probes (probe_cases)."""
+    tails_cases), mont_pow and msm_finish at theirs (loop_cases), the
+    four probes (probe_cases), then msm_digits and msm_gather at a pass's
+    (front_cases)."""
     rng = np.random.default_rng(seed)
     cases = []
     for spec in (FR, FQ):
@@ -269,7 +271,8 @@ def kernel_cases(device, n_field: int = 1 << 15, n_ntt: int = 1 << 15, n_ntt_big
                           lambda d=deg, p=p: G.point_double_plain(d, p),
                           6 * deg * n, DOUBLE_PRODUCTS[deg] * n))
     return (cases + upsweep_cases(device, rng) + tails_cases(device, rng)
-            + loop_cases(device, rng, n_field) + probe_cases(device, rng))
+            + loop_cases(device, rng, n_field) + probe_cases(device, rng)
+            + front_cases(device, rng))
 
 
 def batched_ntt_cases(device, rng: np.random.Generator,
@@ -322,6 +325,46 @@ def pass_points(deg: int, lanes: int, rng: np.random.Generator, device) -> torch
     pool = random_points(deg, min(lanes, 1 << 12), rng, device)
     idx = torch.from_numpy(rng.integers(0, pool.shape[2], size=lanes)).to(device)
     return pool.index_select(2, idx)
+
+
+def front_inputs(deg: int, k: int, c: int, lanes: int, rng: np.random.Generator, device):
+    """(rows, scalars) of a pass of k sums at window size c over `lanes`
+    lanes: k tables of n = lanes / (k W) random points (pass_points, with
+    infinity among them) and of n random Fr scalars, the last quarter of the
+    first sum 0 as msm_many pads a sum."""
+    n = lanes // (k * (256 // c))
+    rows = [C.planes_to_rows(pass_points(deg, n, rng, device)) for _ in range(k)]
+    scalars = [_fr_planes(n, rng, device).t().contiguous() for _ in range(k)]
+    scalars[0][n - n // 4 :] = 0
+    return rows, scalars
+
+
+def front_cases(device, rng: np.random.Generator,
+                passes=((1, 4, 8, 1 << 21), (2, 1, 8, 1 << 20))) -> list:
+    """msm_digits and msm_gather at (deg, k, c, lanes) passes -- by default a
+    G1 chunk of four sums at c = 8 and the G2 sum, the credential path's --
+    on front_inputs, msm_gather on the plain keys' stable sort.  Work:
+    msm_digits reads the k n scalars and writes a key and an index, 8
+    bytes, a lane; msm_gather reads each of the k n rows once (a pass's
+    table stays in L2 for its W reads), the index and the permutation (12
+    bytes a lane), and writes every lane's point."""
+    cases = []
+    for deg, k, c, lanes in passes:
+        rows, scalars = front_inputs(deg, k, c, lanes, rng, device)
+        n, nb = rows[0].shape[0], lanes.bit_length() - 1
+        cases.append(Case("msm_digits", f"msm_digits k={k} c={c} lanes=2^{nb}",
+                          lambda s=scalars, c=c: P._digit_keys(s, c),
+                          lambda s=scalars, c=c: P._digit_keys_plain(s, c),
+                          k * n, 0, extra_bytes=8 * lanes))
+        keys, idx = P._digit_keys_plain(scalars, c)
+        perm = torch.sort(keys, stable=True)[1]
+        cases.append(Case("msm_gather", f"msm_gather G{deg} k={k} c={c} lanes=2^{nb}",
+                          lambda d=deg, r=rows, i=idx, p=perm, nb=nb: P._signed_gather(d, r, i, p,
+                                                                                       nb),
+                          lambda d=deg, r=rows, i=idx, p=perm, nb=nb: P._signed_gather_plain(
+                              d, r, i, p, nb),
+                          3 * deg * (k * n + lanes), 0, extra_bytes=12 * lanes))
+    return cases
 
 
 def tail_inputs(deg: int, k: int, c: int, lanes: int, rng: np.random.Generator, device):

@@ -18,6 +18,15 @@ msm_many runs k sums as one flat batch (window w of sum i is window
 i*W + w) and one finish whose Horner ladder is k lanes wide: the finish's
 ~W*c sequential adds are paid once for all k sums, not k times.
 
+Steps 1 and 2 around the stable sort -- the digits as the sort's keys and
+the pre-resolved gather index, and the gather of the sorted lanes into
+level 0, bit-reversed and sign-resolved -- are `_digit_keys` and
+`_signed_gather`: on CUDA tensors one launch each of kernels msm_digits and
+msm_gather (gpu_curve.msm_digit_keys, msm_gather_planes; csrc/msm.cu), so
+the pass enqueues without waiting for the card; on CPU tensors
+`_digit_keys_plain` and `_signed_gather_plain`, the digit loop, the
+[P | -P | infinity] table and one index_select of the bit-reversed index.
+
 The upsweep -- every level of the pass, column j of level t + 1 the sum of
 columns j and j + w_t / 2 of level t -- is `_upsweep`: on CUDA planes a few
 launches of kernel msm_upsweep (gpu_curve.msm_upsweep_planes; four a pass of
@@ -50,15 +59,14 @@ directly, so every N of a proof runs the flat pipeline.
 from __future__ import annotations
 
 import os
-from functools import lru_cache
 
-import numpy as np
 import torch
 
 from ..ec import curve as C
 from ..ec.gpu_curve import (
-    msm_abel_planes, msm_finish_planes, msm_tails_planes, msm_upsweep_planes, point_add_halves,
-    point_add_plain, point_add_planes, point_double_plain, scalar_mul,
+    msm_abel_planes, msm_digit_keys, msm_finish_planes, msm_gather_planes, msm_tails_planes,
+    msm_upsweep_planes, point_add_halves, point_add_plain, point_add_planes, point_double_plain,
+    scalar_mul,
 )
 from ..ff import montgomery as M
 from ..ff.limbs import LIMB_BITS, NUM_LIMBS
@@ -94,15 +102,6 @@ def signed_digits(scalars: torch.Tensor, c: int) -> torch.Tensor:
     return torch.stack(out).to(torch.int32)
 
 
-@lru_cache(maxsize=None)
-def _bitrev_np(k: int) -> np.ndarray:
-    idx = np.arange(1 << k, dtype=np.int64)
-    rev = np.zeros_like(idx)
-    for b in range(k):
-        rev |= ((idx >> b) & 1) << (k - 1 - b)
-    return rev
-
-
 def _revbits(idx: torch.Tensor, nb: int) -> torch.Tensor:
     """Bit-reverse (width nb) each element of an int64 vector."""
     r = torch.zeros_like(idx)
@@ -123,6 +122,54 @@ def infinity_rows(deg: int, n: int, device) -> torch.Tensor:
     return C.planes_to_rows(C.infinity_planes(deg, n, device))
 
 
+def _digit_keys_plain(scalars: list, c: int) -> tuple:
+    """Plain version of kernel msm_digits, on any device: k (n, 16) scalar
+    tables -> (keys, idx), each (k W n,) int32.  Lane (i W + w) n + j is
+    window w of scalar j of sum i; its key is (i W + w) (B + 1) + |d|, its
+    index into the table [P_0 .. P_k-1 | -P_0 .. -P_k-1 | infinity] i n + j,
+    plus k n for a negative digit, or 2 k n for a zero one."""
+    k, n, dev = len(scalars), scalars[0].shape[0], scalars[0].device
+    digits = torch.cat([signed_digits(s, c) for s in scalars]).long()   # (k W, n)
+    KW = digits.shape[0]
+    W, B = KW // k, 1 << (c - 1)
+    mag = digits.abs()
+    win = torch.arange(KW, device=dev)[:, None]
+    keys = (win * (B + 1) + mag).reshape(-1)
+    src = (win // W) * n + torch.arange(n, device=dev)
+    idx = torch.where(mag == 0, 2 * k * n, src + torch.where(digits < 0, k * n, 0)).reshape(-1)
+    return keys.int(), idx.int()
+
+
+def _digit_keys(scalars: list, c: int) -> tuple:
+    """A pass's sort keys and gather index: CUDA scalars -> one msm_digits
+    launch, CPU scalars -> _digit_keys_plain."""
+    if scalars[0].is_cuda:
+        return msm_digit_keys(scalars, c)
+    return _digit_keys_plain(scalars, c)
+
+
+def _signed_gather_plain(deg: int, rows: list, idx: torch.Tensor, perm: torch.Tensor,
+                         nb: int) -> torch.Tensor:
+    """Plain version of kernel msm_gather, on any device: the table [P | -P
+    | infinity] of the k sums' rows, the sorted index idx[perm] in
+    bit-reversed order (every upsweep level pairs contiguous halves), one
+    row gather -> level 0, (3 deg, 16, 2^nb) planes."""
+    dev = idx.device
+    table = torch.cat(rows + [_neg_rows(deg, r) for r in rows] + [infinity_rows(deg, 1, dev)])
+    sidx = idx.long()[perm]
+    sidx_br = sidx[_revbits(torch.arange(1 << nb, device=dev), nb)]
+    return C.rows_to_planes(table.index_select(0, sidx_br))
+
+
+def _signed_gather(deg: int, rows: list, idx: torch.Tensor, perm: torch.Tensor,
+                   nb: int) -> torch.Tensor:
+    """Level 0 of a pass: CUDA tensors -> one msm_gather launch, CPU tensors
+    -> _signed_gather_plain."""
+    if idx.is_cuda:
+        return msm_gather_planes(deg, rows, idx, perm, nb)
+    return _signed_gather_plain(deg, rows, idx, perm, nb)
+
+
 def _window_partials(deg: int, tables: list, c: int):
     """Flat-batch bucket phase: per-window (F(t_B), sum_{b<B} F(t_b)).
 
@@ -133,47 +180,37 @@ def _window_partials(deg: int, tables: list, c: int):
     group-linear in the points, so chunks may be summed before the finish.
     The pass is span msm.pass, its stages follow one another as spans
     msm.digits, msm.sort, msm.gather, msm.upsweep, msm.tails and msm.abel
-    (tools.msm_stages times them).
+    (tools.msm_stages times them).  On the card the front end is two
+    launches around the stable sort (msm_digits, msm_gather), counted once a
+    pass as msm.front_kernels, and nothing in the pass waits for the card.
     """
     with span("msm.pass"):
         k = len(tables)
         n = tables[0][0].shape[0]
-        dev = tables[0][0].device
-        with span("msm.digits"):
-            digits = torch.cat([signed_digits(s, c) for _, s in tables]).long()   # (k W, n)
-        KW = digits.shape[0]
-        W = KW // k
+        if LIMB_BITS % c:
+            raise ValueError("window size must divide 16")
+        KW = k * (256 // c)
         B = 1 << (c - 1)
-        Mw = KW * n
-        nb = Mw.bit_length() - 1
-        if (1 << nb) != Mw:
+        nb = (KW * n).bit_length() - 1
+        if (1 << nb) != KW * n:
             raise ValueError("flat batch k*W*N must be a power of two (pad N and k)")
 
+        with span("msm.digits"):
+            keys, idx = _digit_keys([s for _, s in tables], c)
         with span("msm.sort"):
-            # table [P_0 .. P_k-1 | -P_0 .. -P_k-1 | infinity]; the gather index
-            # pre-resolves the sum (row + i n), digit sign (+ k n), digit zero (2 k n)
-            table = torch.cat([r for r, _ in tables] + [_neg_rows(deg, r) for r, _ in tables]
-                              + [infinity_rows(deg, 1, dev)])
-            mag = digits.abs()
-            win = torch.arange(KW, device=dev)[:, None]
-            keys = (win * (B + 1) + mag).reshape(-1)
-            src = (win // W) * n + torch.arange(n, device=dev)
-            idx = torch.where(mag == 0, 2 * k * n,
-                              src + torch.where(digits < 0, k * n, 0)).reshape(-1)
             skeys, perm = torch.sort(keys, stable=True)
-            sidx = idx[perm]
-
         with span("msm.gather"):
-            # bit-reversed storage: every upsweep level pairs contiguous halves
-            sidx_br = sidx[torch.from_numpy(_bitrev_np(nb)).to(dev)]
-            level0 = C.rows_to_planes(table.index_select(0, sidx_br))
+            level0 = _signed_gather(deg, [r for r, _ in tables], idx, perm, nb)
+        if level0.is_cuda:
+            count("msm.front_kernels", 1)
         with span("msm.upsweep"):
             levels = _upsweep(deg, level0)
 
         with span("msm.tails"):
             # global prefixes at every bucket tail: t_{w,b} = last sorted index
-            # with key <= w*(B+1)+b; block j of level t lives at rev_{nb-t}(j)
-            bucket_keys = (win * (B + 1) + torch.arange(B + 1, device=dev)).reshape(-1)
+            # with key <= w*(B+1)+b, and those keys are 0 ... KW*(B+1) - 1;
+            # block j of level t lives at rev_{nb-t}(j)
+            bucket_keys = torch.arange(KW * (B + 1), dtype=skeys.dtype, device=skeys.device)
             m = torch.searchsorted(skeys, bucket_keys, right=True)   # prefix lengths
             acc = _tails(deg, levels, m, nb)
 

@@ -2,8 +2,9 @@
 
 Counterpart of tools/msm_stages.py.  The pipeline runs eagerly here, so the
 stages are timed where they run: the spans msm.pippenger._window_partials
-opens around each stage (digits; table and composite sort; packed gather
-in bit-reversed order; upsweep tree; bucket-tail prefixes; Abel reduction)
+opens around each stage (digits, keys and gather index; the stable sort;
+the signed gather in bit-reversed order; upsweep tree; bucket-tail
+prefixes; Abel reduction)
 and _finish around the finish, recorded with a synchronise at each span's
 end (utils.profiling.recording(sync=device)).  One pass of the flat batch
 is timed (n x 256 / c lanes, at most MAX_LANES), the least of `runs`

@@ -208,8 +208,9 @@ def test_the_span_tree_of_a_proof_generate(flow):
     """The spans of the flow: the issuer's setup, the holder's first proof
     (a fresh context: circuit, pk import, witness, the prover's stages, the
     proof's bytes), the reprove on the cached key, the verifier's three;
-    every span closed, and the sums' lanes counted once a proof (N = 0:
-    G1 4 sums of 2 points, 6 of them infinity; G2 1 of 2, 1)."""
+    every span closed, the sums' lanes counted once a proof (N = 0:
+    G1 4 sums of 2 points, 6 of them infinity; G2 1 of 2, 1), and each
+    proof_generate the only one in flight (one thread)."""
     rec = flow["recorder"]
     spans = rec.spans
     assert all(end is not None for _, end, _, _ in spans)
@@ -244,7 +245,8 @@ def test_the_span_tree_of_a_proof_generate(flow):
     counted = {}
     for _, name, n in rec.counts:
         counted[name] = counted.get(name, 0) + n
-    assert counted == {"msm.lanes": 10 * proofs, "msm.padded_lanes": 7 * proofs}
+    assert counted == {"msm.lanes": 10 * proofs, "msm.padded_lanes": 7 * proofs,
+                       "claims.in_flight": len(at("claims.proof_generate"))}
 
 
 def test_cli_bench_header_matches_jax_package():

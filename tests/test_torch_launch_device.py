@@ -77,6 +77,32 @@ def test_launch_needs_a_cuda_device(faked):
     assert faked["calls"] == [] and K.LAUNCHES["mont_mul"] == 0
 
 
+def test_launches_from_many_threads_are_all_counted(faked):
+    """Holders on several threads launch at once: LAUNCHES counts every
+    launch (eight threads of 2,000, a shortened switch interval)."""
+    import sys
+    import threading
+
+    dev = torch.device("cuda:0")
+
+    def launches():
+        for _ in range(2000):
+            K.launch("mont_mul", 1, device=dev)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=launches) for _ in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert K.LAUNCHES["mont_mul"] == len(faked["calls"]) == 8 * 2000
+
+
 def test_a_failed_launch_raises_and_is_not_counted(monkeypatch, faked):
     monkeypatch.setitem(K._FUNCTIONS, "mont_mul", lambda *args: 700)
     with pytest.raises(RuntimeError, match="CUDA error 700"):

@@ -7,6 +7,7 @@ replaced by a counter), so parents, self times and windows are integers.
 
 import itertools
 import json
+import threading
 
 import pytest
 
@@ -100,6 +101,80 @@ def test_counts_inside_and_outside_a_window(clock):
             inside[name] = inside.get(name, 0) + n
     assert inside == {"msm.lanes": 4, "msm.padded_lanes": 1}
     assert sum(n for _, name, n in rec.counts if name == "msm.lanes") == 14
+
+
+def test_two_threads_keep_their_own_parents_and_every_count():
+    """Two holders' spans interleave (A opens, B opens, A closes, B closes,
+    by handshake) inside a span of the main thread: each span's parent is
+    the span open on its own thread, rec.threads names the thread of each
+    span, and count_open sees the spans of a name open on both threads.
+    Then no span or count is lost to a race: eight threads of 500 spans
+    and counts each, under a shortened switch interval."""
+    import sys
+
+    go_a, a_opened, b_opened, a_closed = (threading.Event() for _ in range(4))
+    ident = {}
+
+    def holder(name, wait_open, opened, wait_close, closed):
+        ident[name] = threading.get_ident()
+        assert wait_open.wait(10)
+        with TP.span("claims.proof_generate"):
+            TP.count_open("claims.in_flight", "claims.proof_generate")
+            with TP.span(f"claims.witness.{name}"):
+                opened.set()
+                assert wait_close.wait(10)
+        closed.set()
+
+    with TP.recording() as rec:
+        with TP.span("window"):
+            a = threading.Thread(target=holder, args=("a", go_a, a_opened, b_opened, a_closed))
+            b = threading.Thread(target=holder,
+                                 args=("b", a_opened, b_opened, a_closed, threading.Event()))
+            a.start(), b.start()
+            go_a.set()
+            a.join(10), b.join(10)
+    assert not a.is_alive() and not b.is_alive()
+    assert [name for _, _, name, _ in rec.spans] == [
+        "window", "claims.proof_generate", "claims.witness.a", "claims.proof_generate",
+        "claims.witness.b"]
+    assert [parent for _, _, _, parent in rec.spans] == [-1, -1, 1, -1, 3]
+    assert rec.threads == [threading.get_ident(), ident["a"], ident["a"], ident["b"],
+                           ident["b"]]
+    assert [n for _, _, n in rec.counts] == [1, 2]
+    assert all(end is not None for _, end, _, _ in rec.spans) and rec._open == []
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        with TP.recording() as rec:
+            def spans():
+                for _ in range(500):
+                    with TP.span("msm.pass"):
+                        TP.count("msm.lanes", 1)
+            threads = [threading.Thread(target=spans) for _ in range(8)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert len(rec.spans) == len(rec.threads) == len(rec.counts) == 8 * 500
+    assert all(parent == -1 and end is not None for _, end, _, parent in rec.spans)
+    assert rec._opened["msm.pass"] == 0
+
+
+def test_a_single_thread_records_its_own_thread(clock):
+    """One thread: the tree as before, every span of that thread, and
+    count_open counting the spans of a name open at that moment."""
+    with TP.recording() as rec:
+        with TP.span("groth16.prove"):                                  # 0
+            TP.count_open("claims.in_flight", "groth16.prove")          # 10
+            with TP.span("msm.g1"):                                     # 20, closes at 40
+                TP.count_open("claims.in_flight", "claims.proof_generate")   # 30
+    assert rec.spans == [(0, 50, "groth16.prove", -1), (20, 40, "msm.g1", 0)]
+    assert rec.threads == [threading.get_ident()] * 2
+    assert rec.counts == [(10, "claims.in_flight", 1), (30, "claims.in_flight", 0)]
 
 
 def test_sync_mode_synchronises_at_each_span_end(monkeypatch, clock):

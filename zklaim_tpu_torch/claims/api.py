@@ -40,7 +40,7 @@ import struct
 from dataclasses import dataclass, field
 from enum import IntEnum
 
-from ..utils.profiling import span
+from ..utils.profiling import count_open, span
 from . import signing
 from .circuit import (
     OP_EQ,
@@ -182,7 +182,9 @@ class Context:
 
     def __deepcopy__(self, memo):
         """Deep-copy wire state; share the immutable circuit/pk caches
-        (a built ZKlaimCircuit/ProvingKey is never mutated)."""
+        (a built ZKlaimCircuit/ProvingKey is never mutated): a copy of a
+        context that has proved holds no second copy of the pk's tables on
+        the card, and is the holder of a worker thread."""
         import copy as _copy
 
         new = Context.__new__(Context)
@@ -256,7 +258,11 @@ class Context:
 
     def proof_generate(self, rng=None) -> int:
         """Prove the current payloads' predicates (zklaim_proof_generate);
-        span claims.proof_generate."""
+        span claims.proof_generate.  The work runs on the calling thread's
+        current stream and nowhere else, so holders (copies of one warm
+        context) may prove at once, each on its own thread and stream;
+        counter claims.in_flight: at each start, the proof_generate calls
+        running in the process, this one included."""
         import random
 
         from .. import resolve_device
@@ -266,6 +272,7 @@ class Context:
 
         rng = rng if rng is not None else random.SystemRandom()
         with span("claims.proof_generate"):
+            count_open("claims.in_flight", "claims.proof_generate")
             circuit = self._circuit()
             if (
                 self._pk_cache is not None

@@ -466,8 +466,12 @@ extern "C" int zk_msm_finish(int deg,
                             (size_t)warps * per_warp * slots * 8);
   if (bytes > FIN_SHARED_MAX) return (int)cudaErrorInvalidValue;
   if (bytes > 48 * 1024) {
+    // the limit is the kernel's, shared by every host thread that launches it: set the
+    // largest a launch may ask for, so that no thread's smaller one comes between
+    // another thread's set and its launch
     cudaError_t err = cudaFuncSetAttribute(msm_finish_kernel,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           FIN_SHARED_MAX);
     if (err != cudaSuccess) return (int)err;
   }
   msm_finish_kernel<<<1, warps * 32, bytes, (cudaStream_t)stream>>>(

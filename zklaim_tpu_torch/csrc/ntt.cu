@@ -190,6 +190,9 @@ __global__ void ntt_stage_kernel(int32_t* __restrict__ x, int64_t n,
   }
 }
 
+// the most a zk_ntt_local launch asks for: a tile of 2^10 elements a CTA on a cluster of 8
+#define NTT_LOCAL_SHARED_MAX ((1024 + 1023 + 3 * 512) * 8 * 4)
+
 // every stage with half < 2^log_tile on each tile of 2^log_tile elements of
 // the n / 2^log_n transforms of 2^log_n in a plane of width n, a tile on a
 // cluster of 2^log_cluster CTAs; gather: src is the (2^log_n, n / 2^log_n,
@@ -209,8 +212,10 @@ extern "C" int zk_ntt_local(const void* src, void* dst, long long n, int log_n, 
   void (*kernel)(const int32_t*, int32_t*, int64_t, int, const int32_t*, int64_t, int, int) =
       gather ? ntt_local_kernel<true> : ntt_local_kernel<false>;
   if (smem > 48 * 1024) {
+    // the kernel's limit, shared by every host thread: the largest a launch may ask for
+    // (as in zk_msm_finish)
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)smem);
+                                           NTT_LOCAL_SHARED_MAX);
     if (err != cudaSuccess) return (int)err;
   }
   cudaLaunchAttribute attr[1];
@@ -248,7 +253,8 @@ extern "C" int zk_ntt_stage(void* x, long long n, int log_n, const void* tw, lon
   const size_t smem = (size_t)elems * 8 * sizeof(uint32_t);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(ntt_stage_kernel,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           NTT_PASS_SHARED_MAX);
     if (err != cudaSuccess) return (int)err;
   }
   const int threads = elems / 2 < 256 ? (int)(elems / 2) : 256;

@@ -18,8 +18,6 @@ layout of the kernels -- one (3 deg, 16, n) tensor, G2 planes ordered
 
 from __future__ import annotations
 
-from functools import lru_cache
-
 import numpy as np
 import torch
 
@@ -28,6 +26,7 @@ from ..ff.hostfield import Fq, Fq2
 from ..ff.limbs import NUM_LIMBS, to_tensor
 from ..ff.montgomery import FQ
 from ..ff.params import Q
+from ..utils.device_cache import device_constant
 from .hostcurve import B_G1, B_G2, CurvePoint
 
 
@@ -107,7 +106,7 @@ class FqOps:
         return _ones(_mont_one(1, str(device)), batch_shape)
 
 
-@lru_cache(maxsize=None)
+@device_constant
 def _mont_one(deg: int, device: str) -> torch.Tensor:
     """1 in Montgomery form over Fq (16 limbs) or Fq2 ((2, 16)) on the
     device, copied there once: an upload from pageable host memory makes

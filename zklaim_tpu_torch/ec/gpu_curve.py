@@ -43,12 +43,12 @@ msm.pippenger._digit_keys_plain and _signed_gather_plain.
 from __future__ import annotations
 
 import ctypes
-from functools import lru_cache
 
 import torch
 
 from .. import kernels as K
 from ..ff.limbs import LIMB_BITS, NUM_LIMBS
+from ..utils.device_cache import device_constant
 from . import curve as C
 from . import rcb_schedule
 
@@ -143,7 +143,7 @@ FINISH_MAX_WARPS = 16                # csrc/curve.cu:FIN_THREADS / 32
 TAILS_MAX_LEVELS = 32                # csrc/curve.cu:TAIL_MAX_LEVELS
 
 
-@lru_cache(maxsize=None)
+@device_constant
 def _schedule_on(build, deg: int, device: str) -> tuple:
     """(the packed schedule build(deg) on the device, its group size, its
     slot count), uploaded once."""
@@ -309,7 +309,7 @@ def msm_digit_keys(scalars: list, c: int) -> tuple:
     return keys, idx
 
 
-@lru_cache(maxsize=None)
+@device_constant
 def _infinity_row_on(deg: int, device: str) -> torch.Tensor:
     """The packed infinity row on the device, made once."""
     return C.planes_to_rows(C.infinity_planes(deg, 1, device)).reshape(-1)

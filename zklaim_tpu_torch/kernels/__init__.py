@@ -21,7 +21,10 @@ the CPU or on two cards), under that device's guard and on that device's
 current PyTorch stream, raises if the launcher returns a CUDA error, and
 counts the launch in LAUNCHES -- the count a run reads to show that its
 main path went through the kernels.  The C functions are looked up and given their
-argument types once, when the library is loaded.
+argument types once, when the library is loaded.  Holders may prove at once
+on several threads: the launchers release the interpreter lock, the
+current stream is each thread's own, and the library's loading and the
+counts take a lock.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -84,6 +88,8 @@ LAUNCHES = dict.fromkeys(KERNELS, 0)
 BUILD_INFO: dict = {}
 _LIB = None
 _FUNCTIONS: dict = {}          # kernel name -> its C function, filled by library()
+_LOAD_LOCK = threading.Lock()  # one build and load, whichever thread launches first
+_COUNT_LOCK = threading.Lock() # LAUNCHES' read-modify-write, from every thread
 
 
 def reset_launches() -> None:
@@ -148,14 +154,15 @@ def build() -> Path:
 
 def library() -> ctypes.CDLL:
     global _LIB
-    if _LIB is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, (sym, argtypes) in KERNELS.items():
-            fn = getattr(lib, sym)
-            fn.argtypes = argtypes + [_P]
-            fn.restype = ctypes.c_int
-            _FUNCTIONS[name] = fn
-        _LIB = lib
+    with _LOAD_LOCK:
+        if _LIB is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, (sym, argtypes) in KERNELS.items():
+                fn = getattr(lib, sym)
+                fn.argtypes = argtypes + [_P]
+                fn.restype = ctypes.c_int
+                _FUNCTIONS[name] = fn
+            _LIB = lib
     return _LIB
 
 
@@ -172,7 +179,8 @@ def launch(name: str, *args, device: torch.device) -> None:
         rc = _FUNCTIONS[name](*args, torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"kernel {name} launch failed: CUDA error {rc}")
-    LAUNCHES[name] += 1
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1
 
 
 def sm_count(device: torch.device) -> int:

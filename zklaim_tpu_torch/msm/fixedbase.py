@@ -10,14 +10,13 @@ limb for limb.
 
 from __future__ import annotations
 
-from functools import lru_cache
-
 import torch
 
 from ..ec import curve as C
 from ..ec.gpu_curve import point_add_planes
 from ..ec.hostcurve import CurvePoint, g1_generator, g2_generator
 from ..ff.limbs import LIMB_BITS
+from ..utils.device_cache import device_constant
 
 
 class FixedBaseTable:
@@ -53,12 +52,12 @@ class FixedBaseTable:
         return acc
 
 
-@lru_cache(maxsize=None)
+@device_constant
 def g1_table(c: int, device: str) -> FixedBaseTable:
     return FixedBaseTable(1, g1_generator(), c, device)
 
 
-@lru_cache(maxsize=None)
+@device_constant
 def g2_table(c: int, device: str) -> FixedBaseTable:
     return FixedBaseTable(2, g2_generator(), c, device)
 

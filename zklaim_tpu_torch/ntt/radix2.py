@@ -20,8 +20,6 @@ tables limb for limb.
 
 from __future__ import annotations
 
-from functools import lru_cache
-
 import numpy as np
 import torch
 
@@ -29,6 +27,7 @@ from ..ff import montgomery as M
 from ..ff.limbs import ints_to_limbs, to_tensor
 from ..ff.montgomery import FR
 from ..ff.params import FR_GENERATOR, R, ROOT_OF_UNITY, TWO_ADICITY
+from ..utils.device_cache import device_constant
 from . import gpu_ntt
 
 
@@ -120,6 +119,6 @@ class NTTDomain:
         return M.mont_mul(FR, self.intt(y), self.shift_pows_inv.view(self._bshape(y)))
 
 
-@lru_cache(maxsize=None)
+@device_constant
 def get_domain(n: int, device: str) -> NTTDomain:
     return NTTDomain(n, device)

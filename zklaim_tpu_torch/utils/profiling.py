@@ -3,17 +3,20 @@ timing helpers of the measuring path.
 
 Spans and counters: the layers of the normal path open `span("<layer>.<stage>")`
 around their stages (claims.*, groth16.*, ntt.*, msm.*, verifier.*) and
-count what their shapes say (`count("msm.lanes", n)`).  Both cost one flag
-test while nothing records.  `recording()` switches recording on for a
-with block and hands the block a `Recorder`, which keeps every span as
-(start_ns, end_ns, name, parent) and every count as (time_ns, name, n),
-all on `time.time_ns()`, the clock torch.profiler stamps its events with,
-so that a span can be laid over a device trace directly.  Spans never
-synchronise the card and never call torch.profiler.record_function (whose
-range can come back as an event on the card); a tool that wants a stage's
-own time passes `recording(sync=device)`, and each span then ends with a
-synchronise.  The normal path is single-threaded: the recorder takes no
-lock.
+count what their shapes say (`count("msm.lanes", n)`) or how many spans of
+a name are open at once (`count_open`).  Each costs one flag test while
+nothing records.  `recording()` switches recording on for a with block and
+hands the block a `Recorder`, which keeps every span as (start_ns, end_ns,
+name, parent) and every count as (time_ns, name, n), all on
+`time.time_ns()`, the clock torch.profiler stamps its events with, so that
+a span can be laid over a device trace directly.  Spans never synchronise
+the card and never call torch.profiler.record_function (whose range can
+come back as an event on the card); a tool that wants a stage's own time
+passes `recording(sync=device)`, and each span then ends with a
+synchronise.  The recorder takes every thread's spans: several holders
+may prove at once, each on its own thread.  Each thread has its own stack
+of open spans, so a span's parent is the span open on its own thread, and
+`Recorder.threads` says which thread opened each span.
 
 ZKLAIM_TRACE_DIR=/path writes one Chrome trace per `device_trace` region
 (viewable in chrome://tracing or Perfetto).
@@ -30,24 +33,39 @@ from __future__ import annotations
 import contextlib
 import os
 import subprocess
+import threading
 import time
+from collections import Counter
 from functools import lru_cache
 
 import torch
 
 
 class Recorder:
-    """What one `recording()` block records.
+    """What one `recording()` block records, from every thread.
 
     spans: (start_ns, end_ns, name, parent) in the order the spans opened;
     end_ns is None while a span is open, parent the index of the span open
-    when it opened (-1 where none was).  counts: (time_ns, name, n)."""
+    on the same thread when it opened (-1 where none was).  threads: the
+    thread (threading.get_ident()) that opened each span, parallel to
+    spans.  counts: (time_ns, name, n)."""
 
     def __init__(self, sync=None):
         self.sync = sync
         self.spans: list = []
+        self.threads: list = []
         self.counts: list = []
-        self._open: list = []                       # indices of the open spans
+        self._lock = threading.Lock()               # spans, threads and _opened change together
+        self._local = threading.local()
+        self._opened: Counter = Counter()           # name -> its spans open, on every thread
+
+    @property
+    def _open(self) -> list:
+        """Indices of the spans open on the calling thread, innermost last."""
+        stack = getattr(self._local, "open", None)
+        if stack is None:
+            stack = self._local.open = []
+        return stack
 
     def self_ns(self) -> list:
         """Each span's self time, ns: its time less its children's (None
@@ -67,17 +85,23 @@ class _Span:
         self.rec, self.name = rec, name
 
     def __enter__(self):
-        rec = self.rec
-        self.index = len(rec.spans)
-        rec.spans.append((time.time_ns(), None, self.name, rec._open[-1] if rec._open else -1))
-        rec._open.append(self.index)
+        rec, stack = self.rec, self.rec._open
+        with rec._lock:
+            self.index = len(rec.spans)
+            rec.spans.append((time.time_ns(), None, self.name, stack[-1] if stack else -1))
+            rec.threads.append(threading.get_ident())
+            rec._opened[self.name] += 1
+        stack.append(self.index)
 
     def __exit__(self, *exc):
         rec = self.rec
         if rec.sync is not None:
             sync(rec.sync)
-        start, _, name, parent = rec.spans[self.index]
-        rec.spans[self.index] = (start, time.time_ns(), name, parent)
+        end = time.time_ns()
+        with rec._lock:
+            start, _, name, parent = rec.spans[self.index]
+            rec.spans[self.index] = (start, end, name, parent)
+            rec._opened[name] -= 1
         rec._open.pop()
         return False
 
@@ -98,6 +122,14 @@ def count(name: str, n: int) -> None:
     """Add n to counter `name`, while a `recording()` block is open."""
     if _active is not None:
         _active.counts.append((time.time_ns(), name, n))
+
+
+def count_open(name: str, span_name: str) -> None:
+    """Add to counter `name` how many spans `span_name` are open now, on
+    every thread, while a `recording()` block is open."""
+    rec = _active
+    if rec is not None:
+        rec.counts.append((time.time_ns(), name, rec._opened[span_name]))
 
 
 @contextlib.contextmanager

@@ -262,13 +262,16 @@ class Context:
         current stream and nowhere else, so holders (copies of one warm
         context) may prove at once, each on its own thread and stream;
         counter claims.in_flight: at each start, the proof_generate calls
-        running in the process, this one included."""
+        running in the process, this one included.  The witness comes from
+        the circuit's compiled build (claims/witness.py), made at the first
+        proof and shared by the holders of one circuit."""
         import random
 
         from .. import resolve_device
         from ..groth16.api import prove
         from ..groth16.qap import QAP
         from . import serde
+        from .witness import witness_program
 
         rng = rng if rng is not None else random.SystemRandom()
         with span("claims.proof_generate"):
@@ -296,7 +299,7 @@ class Context:
             ]
             try:
                 with span("claims.witness"):
-                    witness = circuit.witness(inputs)
+                    witness = witness_program(circuit).witness(inputs)
                 proof = prove(pk, qap, witness, rng)
             except ValueError:
                 return ZKLAIM_ERROR

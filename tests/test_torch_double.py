@@ -28,6 +28,7 @@ from zklaim_tpu_torch.ec import gpu_curve as G
 from zklaim_tpu_torch.ec.hostcurve import g1_generator, g2_generator
 from zklaim_tpu_torch.ff.limbs import ints_to_limbs
 from zklaim_tpu_torch.ff.params import R
+from zklaim_tpu_torch.msm import gpu_msm as GM
 from zklaim_tpu_torch.msm import pippenger as TP
 
 # The suite runs as several worker processes on a few cores; torch's
@@ -99,7 +100,7 @@ def test_msm_finish_matches_jax_projectively():
     rows = C.planes_to_rows(C.point_to_planes(f, C.host_points_to_proj(f, pts, "cpu")))
     scalars = torch.from_numpy(ints_to_limbs(sc).astype(np.int32))
     tot, head = TP._window_partials(1, [(rows, scalars)], 8)
-    got = TP._finish(1, tot, head, 8, 1)
+    got = GM.finish(1, tot, head, 8, 1)
 
     def planes(t):                      # (3, 16, W) -> three (16, W) u32 planes
         return tuple(jnp.asarray(c.numpy().astype(np.uint32)) for c in t)

@@ -57,10 +57,9 @@ def test_kernel_matches_plain_at_main_path_shapes(cases, kernel):
 
 
 def test_wrappers_reject_bad_operands(cuda):
-    from zklaim_tpu_torch.ec.gpu_curve import (
-        msm_finish_planes, point_add_planes, point_double_planes,
-    )
+    from zklaim_tpu_torch.ec.gpu_curve import point_add_planes, point_double_planes
     from zklaim_tpu_torch.ff.montgomery import FR, mont_mul, mont_pow_bits, mont_pow_k1
+    from zklaim_tpu_torch.msm.gpu_msm import msm_finish_planes, msm_tails_planes
 
     a = torch.zeros((4, 16), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError):
@@ -92,8 +91,6 @@ def test_wrappers_reject_bad_operands(cuda):
                 lambda: msm_finish_planes(1, t.repeat(1, 1, 512), t.repeat(1, 1, 512), 8, 512)):
         with pytest.raises(ValueError):                                    # last: shared memory
             bad()
-    from zklaim_tpu_torch.ec.gpu_curve import msm_tails_planes
-
     lv = [torch.zeros((3, 16, 1 << (2 - t)), dtype=torch.int32, device=cuda) for t in range(3)]
     m = torch.zeros(5, dtype=torch.int64, device=cuda)
     for bad in (lambda: msm_tails_planes(1, lv, m.cpu(), 2),                 # CPU prefix lengths
@@ -151,9 +148,8 @@ def test_msm_finish_on_strided_partials_and_many_sums(cuda):
     finish, and each call is one launch."""
     import numpy as np
 
-    from zklaim_tpu_torch.ec.gpu_curve import msm_finish_planes
     from zklaim_tpu_torch.kernels.cases import curve_inputs
-    from zklaim_tpu_torch.msm.pippenger import _finish, _finish_plain
+    from zklaim_tpu_torch.msm.gpu_msm import finish, finish_plain, msm_finish_planes
 
     rng = np.random.default_rng(8)
     for deg in (1, 2):
@@ -163,21 +159,20 @@ def test_msm_finish_on_strided_partials_and_many_sums(cuda):
         before = K.LAUNCHES["msm_finish"]
         got = msm_finish_planes(deg, tot, head, 16, 1)
         assert K.LAUNCHES["msm_finish"] == before + 1
-        assert max_abs_err(got, _finish_plain(deg, tot.contiguous(), head.contiguous(), 16, 1)) == 0
+        assert max_abs_err(got, finish_plain(deg, tot.contiguous(), head.contiguous(), 16, 1)) == 0
     tot, head = curve_inputs(1, 20 * 16, rng, cuda)
-    assert max_abs_err(_finish(1, tot, head, 16, 20), _finish_plain(1, tot, head, 16, 20)) == 0
+    assert max_abs_err(finish(1, tot, head, 16, 20), finish_plain(1, tot, head, 16, 20)) == 0
 
 
 def test_msm_tails_on_strided_levels(cuda):
     """msm_tails takes each level's own plane and row strides (slices of
     wider plane sets), prefix lengths 0, 2^nb and values with bits above nb,
-    and more lanes than a CTA holds; it equals _tails_plain on contiguous
+    and more lanes than a CTA holds; it equals tails_plain on contiguous
     copies, G1 and G2, one launch a call."""
     import numpy as np
 
-    from zklaim_tpu_torch.ec.gpu_curve import msm_tails_planes
     from zklaim_tpu_torch.kernels.cases import tail_inputs
-    from zklaim_tpu_torch.msm.pippenger import _tails_plain
+    from zklaim_tpu_torch.msm.gpu_msm import msm_tails_planes, tails_plain
 
     rng = np.random.default_rng(12)
     for deg in (1, 2):
@@ -191,7 +186,7 @@ def test_msm_tails_on_strided_levels(cuda):
         before = K.LAUNCHES["msm_tails"]
         got = msm_tails_planes(deg, views, mm, nb)
         assert K.LAUNCHES["msm_tails"] == before + 1
-        want = _tails_plain(deg, [v.contiguous() for v in views], mm, nb)
+        want = tails_plain(deg, [v.contiguous() for v in views], mm, nb)
         assert max_abs_err(got, want) == 0, deg
 
 
@@ -204,10 +199,11 @@ def test_msm_upsweep_and_abel_at_small_tiles(cuda, monkeypatch):
     plan and one a tree."""
     import numpy as np
 
-    from zklaim_tpu_torch.ec.gpu_curve import msm_abel_planes, msm_upsweep_planes
     from zklaim_tpu_torch.kernels.cases import random_points
     from zklaim_tpu_torch.msm import upsweep_plan as UP
-    from zklaim_tpu_torch.msm.pippenger import _abel_plain, _upsweep_plain
+    from zklaim_tpu_torch.msm.gpu_msm import (
+        abel_plain, msm_abel_planes, msm_upsweep_planes, upsweep_plain,
+    )
 
     rng = np.random.default_rng(14)
     card_slots = UP.slots
@@ -220,7 +216,7 @@ def test_msm_upsweep_and_abel_at_small_tiles(cuda, monkeypatch):
             before = K.LAUNCHES["msm_upsweep"]
             got = msm_upsweep_planes(deg, level0, plan)
             assert K.LAUNCHES["msm_upsweep"] == before + len(plan)
-            want = _upsweep_plain(deg, level0.contiguous())
+            want = upsweep_plain(deg, level0.contiguous())
             assert max_abs_err(got, want) == 0, (deg, nb, held)
         monkeypatch.setattr(UP, "slots", card_slots)
         for c in (2, 4, 8):
@@ -229,12 +225,12 @@ def test_msm_upsweep_and_abel_at_small_tiles(cuda, monkeypatch):
             before = K.LAUNCHES["msm_abel"]
             got = msm_abel_planes(deg, heads, kw, UP.abel_plan(deg, heads.shape[2], kw))
             assert K.LAUNCHES["msm_abel"] == before + 1
-            assert max_abs_err(got, _abel_plain(deg, heads.contiguous(), kw)) == 0, (deg, c)
+            assert max_abs_err(got, abel_plain(deg, heads.contiguous(), kw)) == 0, (deg, c)
 
 
 def test_msm_abel_chains_a_tree_past_one_cta(cuda):
     """At c = 16 a window column's tree has 2^15 heads, more than a CTA
-    holds: _abel runs it as two msm_abel launches (8 and 7 levels, G1 and
+    holds: abel runs it as two msm_abel launches (8 and 7 levels, G1 and
     G2), each launch's columns the next one's heads, and equals the halving
     loop; a whole MSM of 2^10 points at c = 16 (two msm_abel launches) gives
     the point c = 8 gives."""
@@ -245,17 +241,18 @@ def test_msm_abel_chains_a_tree_past_one_cta(cuda):
     from zklaim_tpu_torch.ff.limbs import ints_to_limbs, to_tensor
     from zklaim_tpu_torch.ff.params import R
     from zklaim_tpu_torch.kernels.cases import pass_points
+    from zklaim_tpu_torch.msm import gpu_msm as GM
     from zklaim_tpu_torch.msm import pippenger as TP
 
     rng = np.random.default_rng(16)
     kw = 16
     for deg in (1, 2):
         heads = pass_points(deg, kw << 15, rng, cuda)
-        assert TP.abel_plan(deg, heads.shape[2], kw) == [8, 7]
+        assert GM.abel_plan(deg, heads.shape[2], kw) == [8, 7]
         before = K.LAUNCHES["msm_abel"]
-        got = TP._abel(deg, heads, kw)
+        got = GM.abel(deg, heads, kw)
         assert K.LAUNCHES["msm_abel"] == before + 2
-        assert max_abs_err(got, TP._abel_plain(deg, heads, kw)) == 0, deg
+        assert max_abs_err(got, GM.abel_plain(deg, heads, kw)) == 0, deg
     rnd = random.Random(16)
     rows = make_points(1, 1 << 10, cuda)
     scalars = to_tensor(ints_to_limbs([rnd.randrange(R) for _ in range(1 << 10)]), cuda)
@@ -280,10 +277,9 @@ def _front_scalars(n, rnd, device):
 
 def test_msm_digits_at_every_window_size_on_sliced_tables(cuda):
     """msm_digits on k = 1 and 4 sums at c = 4, 8 and 16, on scalar tables
-    sliced from wider ones (_front_scalars), equals _digit_keys_plain, keys
+    sliced from wider ones (_front_scalars), equals digit_keys_plain, keys
     and index, one launch a call."""
-    from zklaim_tpu_torch.ec.gpu_curve import msm_digit_keys
-    from zklaim_tpu_torch.msm.pippenger import _digit_keys_plain
+    from zklaim_tpu_torch.msm.gpu_msm import digit_keys_plain, msm_digit_keys
 
     rnd = random.Random(21)
     for k in (1, 4):
@@ -293,23 +289,22 @@ def test_msm_digits_at_every_window_size_on_sliced_tables(cuda):
             before = K.LAUNCHES["msm_digits"]
             got = msm_digit_keys(tables, c)
             assert K.LAUNCHES["msm_digits"] == before + 1
-            assert max_abs_err(got, _digit_keys_plain(tables, c)) == 0, (k, c)
+            assert max_abs_err(got, digit_keys_plain(tables, c)) == 0, (k, c)
 
 
 def test_msm_gather_matches_the_plain_table_gather(cuda):
     """msm_gather, G1 and G2, on 1, 2 and 4 sums of rows sliced from wider
     tables, with infinity rows and a row whose y is 0 among the points and
     zero and negative digits, on fewer lanes than a CTA takes and on many
-    CTAs, equals _signed_gather_plain (the [P | -P | infinity] table,
+    CTAs, equals signed_gather_plain (the [P | -P | infinity] table,
     index_select of the bit-reversed sorted index, rows to planes) limb for
     limb, one launch a call."""
     import numpy as np
 
     from zklaim_tpu_torch.ec import curve as C
-    from zklaim_tpu_torch.ec.gpu_curve import msm_gather_planes
     from zklaim_tpu_torch.kernels.cases import random_points
-    from zklaim_tpu_torch.msm.pippenger import (
-        _digit_keys_plain, _signed_gather_plain, infinity_rows,
+    from zklaim_tpu_torch.msm.gpu_msm import (
+        digit_keys_plain, infinity_rows, msm_gather_planes, signed_gather_plain,
     )
 
     rng, rnd = np.random.default_rng(22), random.Random(22)
@@ -319,28 +314,27 @@ def test_msm_gather_matches_the_plain_table_gather(cuda):
             rows[0][1, 16 * deg : 32 * deg] = 0
             rows[-1][n - 1] = infinity_rows(deg, 1, cuda)[0]
             scalars = [_front_scalars(n, rnd, cuda) for _ in range(k)]
-            keys, idx = _digit_keys_plain(scalars, c)
+            keys, idx = digit_keys_plain(scalars, c)
             perm = torch.sort(keys, stable=True)[1]
             nb = keys.shape[0].bit_length() - 1
             before = K.LAUNCHES["msm_gather"]
             got = msm_gather_planes(deg, rows, idx, perm, nb)
             assert K.LAUNCHES["msm_gather"] == before + 1
-            want = _signed_gather_plain(deg, rows, idx, perm, nb)
+            want = signed_gather_plain(deg, rows, idx, perm, nb)
             assert max_abs_err(got, want) == 0, (deg, k, n, c)
 
 
 def test_window_partials_and_msm_many_on_card_match_cpu(cuda):
     """A pass of four G1 sums on the card (_window_partials: msm_digits, the
     sort, msm_gather, then the upsweep, tails and Abel kernels) equals the
-    CPU path limb for limb and counts msm.front_kernels once; msm_many over
-    three G1 sums of unequal lengths in three chunks, and a G2 msm_pow2,
-    give the CPU's planes limb for limb."""
+    CPU path limb for limb and adds one launch each of msm_digits and
+    msm_gather; msm_many over three G1 sums of unequal lengths in three
+    chunks, and a G2 msm_pow2, give the CPU's planes limb for limb."""
     import numpy as np
 
     from zklaim_tpu_torch.ec import curve as C
     from zklaim_tpu_torch.kernels.cases import random_points
     from zklaim_tpu_torch.msm import pippenger as TP
-    from zklaim_tpu_torch.utils.profiling import recording
 
     rng, rnd = np.random.default_rng(23), random.Random(23)
 
@@ -351,10 +345,10 @@ def test_window_partials_and_msm_many_on_card_match_cpu(cuda):
         return [(r.to(dev), s.to(dev)) for r, s in tables]
 
     tables = [table(1, 16) for _ in range(4)]
-    with recording() as rec:
-        got = TP._window_partials(1, on(tables, cuda), 8)
-    assert [(name, n) for _, name, n in rec.counts if name == "msm.front_kernels"] == [
-        ("msm.front_kernels", 1)]
+    before = {name: K.LAUNCHES[name] for name in ("msm_digits", "msm_gather")}
+    got = TP._window_partials(1, on(tables, cuda), 8)
+    assert {name: K.LAUNCHES[name] - n for name, n in before.items()} == {
+        "msm_digits": 1, "msm_gather": 1}
     want = TP._window_partials(1, tables, 8)
     assert max_abs_err([g.cpu() for g in got], want) == 0
     pairs = [table(1, n) for n in (40, 17, 33)]
@@ -392,7 +386,7 @@ def test_msm_many_enqueues_without_waiting_for_the_card(cuda):
 
 
 def test_front_wrappers_reject_bad_operands(cuda):
-    from zklaim_tpu_torch.ec.gpu_curve import msm_digit_keys, msm_gather_planes
+    from zklaim_tpu_torch.msm.gpu_msm import msm_digit_keys, msm_gather_planes
 
     s = torch.zeros((32, 16), dtype=torch.int32, device=cuda)
     unaligned = torch.zeros(32 * 16 + 1, dtype=torch.int32, device=cuda)[1:].view(32, 16)

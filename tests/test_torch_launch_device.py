@@ -153,9 +153,33 @@ def test_every_launch_site_names_its_device():
     sites = {str(p.relative_to(PORT)): _launch_calls(p) for p in sorted(PORT.rglob("*.py"))}
     sites = {f: calls for f, calls in sites.items() if calls}
     assert {f: len(c) for f, c in sites.items()} == {
-        "ec/gpu_curve.py": 8, "ff/montgomery.py": 2, "ntt/gpu_ntt.py": 3,
+        "ec/gpu_curve.py": 2, "ff/montgomery.py": 2, "msm/gpu_msm.py": 6, "ntt/gpu_ntt.py": 3,
         "tools/grid_micro.py": 1, "tools/mont_micro.py": 1, "tools/padd_micro.py": 1,
         "tools/msm_stages.py": 1, "tools/pallas_op_micro.py": 1,
     }
     missing = [(f, line) for f, calls in sites.items() for line, kws in calls if "device" not in kws]
     assert not missing
+
+
+def _imports(tree: ast.Module) -> list:
+    """The absolute or relative module names a parsed source imports from."""
+    out = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom):
+            out.append("." * node.level + (node.module or ""))
+        elif isinstance(node, ast.Import):
+            out += [alias.name for alias in node.names]
+    return out
+
+
+def test_the_curve_layer_knows_nothing_of_the_msm():
+    """The MSM pass's stages live in msm/gpu_msm.py: no module under ec/
+    imports from msm or defines a msm_* function, and gpu_msm, below the
+    algorithm, does not import msm.pippenger."""
+    for path in sorted((PORT / "ec").glob("*.py")):
+        tree = ast.parse(path.read_text())
+        assert not [m for m in _imports(tree) if "msm" in m.split(".")], path.name
+        assert not [node.name for node in ast.walk(tree) if isinstance(node, ast.FunctionDef)
+                    and node.name.startswith("msm_")], path.name
+    gpu_msm = _imports(ast.parse((PORT / "msm" / "gpu_msm.py").read_text()))
+    assert gpu_msm and not [m for m in gpu_msm if "pippenger" in m.split(".")]

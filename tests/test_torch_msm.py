@@ -31,6 +31,7 @@ from zklaim_tpu_torch.ff.params import R
 from zklaim_tpu_torch.ff.montgomery import FQ
 from zklaim_tpu_torch.groth16.convert import host_point
 from zklaim_tpu_torch.msm import fixedbase as TF
+from zklaim_tpu_torch.msm import gpu_msm as GM
 from zklaim_tpu_torch.msm import pippenger as TP
 
 # The suite runs as several worker processes on a few cores; torch's
@@ -71,7 +72,7 @@ def test_signed_digits_match_jax():
     sc = ints_to_limbs([0, 1, R - 1] + [rnd.randrange(R) for _ in range(29)])
     for c in (4, 8):
         want = JP.signed_digits(jnp.asarray(sc), c)
-        got = TP.signed_digits(torch.from_numpy(sc.astype(np.int32)), c)
+        got = GM.signed_digits(torch.from_numpy(sc.astype(np.int32)), c)
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
@@ -97,7 +98,7 @@ def _front_scalars(rnd, n):
 
 @pytest.mark.parametrize("c", [4, 8, 16])
 def test_digit_keys_match_jax(c):
-    """_digit_keys_plain, the plain version of kernel msm_digits: for one
+    """digit_keys_plain, the plain version of kernel msm_digits: for one
     sum its int32 keys and index are the JAX package's, and the stable sort
     of the keys carries the index as lax.sort_key_val does; for four sums
     sum i's lanes are the one-sum lanes of its scalars, windows shifted by
@@ -105,7 +106,7 @@ def test_digit_keys_match_jax(c):
     rnd = random.Random(100 + c)
     n, W, B = 16, 256 // c, 1 << (c - 1)
     tables = [ints_to_limbs(_front_scalars(rnd, n)) for _ in range(4)]
-    keys, idx = TP._digit_keys_plain([torch.from_numpy(t.astype(np.int32)) for t in tables[:1]], c)
+    keys, idx = GM.digit_keys_plain([torch.from_numpy(t.astype(np.int32)) for t in tables[:1]], c)
     jkeys, jidx = _jax_keys_and_index(tables[0], c)
     assert keys.dtype == idx.dtype == torch.int32
     np.testing.assert_array_equal(keys.numpy(), np.asarray(jkeys))
@@ -115,10 +116,10 @@ def test_digit_keys_match_jax(c):
     np.testing.assert_array_equal(idx[perm].numpy(), np.asarray(jsidx))
 
     k = len(tables)
-    keys4, idx4 = TP._digit_keys_plain([torch.from_numpy(t.astype(np.int32)) for t in tables], c)
+    keys4, idx4 = GM.digit_keys_plain([torch.from_numpy(t.astype(np.int32)) for t in tables], c)
     assert keys4.shape == idx4.shape == (k * W * n,)
     for i, t in enumerate(tables):
-        one_keys, one_idx = TP._digit_keys_plain([torch.from_numpy(t.astype(np.int32))], c)
+        one_keys, one_idx = GM.digit_keys_plain([torch.from_numpy(t.astype(np.int32))], c)
         lanes = slice(i * W * n, (i + 1) * W * n)
         assert torch.equal(keys4[lanes], one_keys + i * W * (B + 1))
         want = torch.where(one_idx == 2 * n, 2 * k * n,
@@ -133,7 +134,7 @@ def _jax_points(deg, pts):
 
 @pytest.mark.parametrize("deg", [1, 2])
 def test_signed_gather_matches_jax(deg):
-    """_signed_gather_plain, the plain version of kernel msm_gather, on one
+    """signed_gather_plain, the plain version of kernel msm_gather, on one
     sum: level 0 equals the JAX package's gather -- the packed table [P | -P
     | infinity], the sorted index in bit-reversed order (_apply_bitrev),
     jnp.take, the rows unpacked to planes -- limb for limb, with zero and
@@ -144,10 +145,10 @@ def test_signed_gather_matches_jax(deg):
     pts = [gen * rnd.randrange(1, R) for _ in range(n)]
     pts[2] = gen.infinity(gen.b)
     sc = ints_to_limbs(_front_scalars(rnd, n))
-    keys, idx = TP._digit_keys_plain([torch.from_numpy(sc.astype(np.int32))], c)
+    keys, idx = GM.digit_keys_plain([torch.from_numpy(sc.astype(np.int32))], c)
     skeys, perm = torch.sort(keys, stable=True)
     nb = keys.shape[0].bit_length() - 1
-    got = TP._signed_gather_plain(deg, [_rows(deg, pts)], idx, perm, nb)
+    got = GM.signed_gather_plain(deg, [_rows(deg, pts)], idx, perm, nb)
 
     f, jpts = _jax_points(deg, pts)
     x, y, z = jpts
@@ -168,7 +169,7 @@ def _gather_lane_by_lane(deg, rows, idx, perm, nb):
     limbs replaced by those of (p - y) mod 2^256 (0 for y = 0) where
     v >= k n."""
     k, n = len(rows), rows[0].shape[0]
-    inf = TP.infinity_rows(deg, 1, "cpu")[0]
+    inf = GM.infinity_rows(deg, 1, "cpu")[0]
     out = []
     for q in range(1 << nb):
         s = int(format(q, f"0{nb}b")[::-1], 2) if nb else 0
@@ -191,21 +192,21 @@ def _gather_lane_by_lane(deg, rows, idx, perm, nb):
 def test_signed_gather_lane_arithmetic(deg, k):
     """Kernel msm_gather's lane arithmetic (the bit reversal computed per
     lane, the index read through the permutation, the sum's table found by
-    v mod k n, y negated limb by limb) against _signed_gather_plain on k
+    v mod k n, y negated limb by limb) against signed_gather_plain on k
     sums, with a row whose y is 0 among the negated ones."""
     rnd = random.Random(120 + deg)
     n, c = 4, 16
     gen = g1_generator() if deg == 1 else g2_generator()
     rows = [_rows(deg, [gen * rnd.randrange(1, R) for _ in range(n)]) for _ in range(k)]
     rows[0][1, 16 * deg : 32 * deg] = 0                      # y = 0: its negation is 0
-    rows[k - 1][3] = TP.infinity_rows(deg, 1, "cpu")[0]
+    rows[k - 1][3] = GM.infinity_rows(deg, 1, "cpu")[0]
     scalars = [torch.from_numpy(ints_to_limbs(_front_scalars(rnd, n)).astype(np.int32))
                for _ in range(k)]
     scalars[0][1] = torch.from_numpy(ints_to_limbs([R - 1]).astype(np.int32))[0]
-    keys, idx = TP._digit_keys_plain(scalars, c)
+    keys, idx = GM.digit_keys_plain(scalars, c)
     _, perm = torch.sort(keys, stable=True)
     nb = keys.shape[0].bit_length() - 1
-    got = TP._signed_gather_plain(deg, rows, idx, perm, nb)
+    got = GM.signed_gather_plain(deg, rows, idx, perm, nb)
     assert torch.equal(got, _gather_lane_by_lane(deg, rows, idx, perm, nb))
 
 
@@ -299,24 +300,24 @@ def test_chip_smoke_launch_rule_matches_prove_sums(monkeypatch, max_lanes):
 
     def upsweep(deg, level0):
         nb = level0.shape[-1].bit_length() - 1
-        calls["msm_upsweep"] += len(TP.upsweep_plan(deg, nb))
+        calls["msm_upsweep"] += len(GM.upsweep_plan(deg, nb))
         return [level0[..., : level0.shape[-1] >> t] for t in range(nb + 1)]
 
     def abel(deg, heads, kw):
-        calls["msm_abel"] += len(TP.abel_plan(deg, heads.shape[-1], kw))
+        calls["msm_abel"] += len(GM.abel_plan(deg, heads.shape[-1], kw))
         return heads[..., :kw]
 
     monkeypatch.setattr(TP, "point_add_halves",
                         count("point_add", lambda deg, p: p[..., : p.shape[-1] // 2]))
     monkeypatch.setattr(TP, "point_add_planes", count("point_add", lambda deg, a, b: a))
-    monkeypatch.setattr(TP, "_digit_keys", count("msm_digits", TP._digit_keys_plain))
-    monkeypatch.setattr(TP, "_signed_gather", count(
+    monkeypatch.setattr(TP, "digit_keys", count("msm_digits", GM.digit_keys_plain))
+    monkeypatch.setattr(TP, "signed_gather", count(
         "msm_gather", lambda deg, rows, idx, perm, nb: C.infinity_planes(deg, 1 << nb, "cpu")))
-    monkeypatch.setattr(TP, "_upsweep", upsweep)
-    monkeypatch.setattr(TP, "_abel", abel)
-    monkeypatch.setattr(TP, "_tails", count(
+    monkeypatch.setattr(TP, "upsweep", upsweep)
+    monkeypatch.setattr(TP, "abel", abel)
+    monkeypatch.setattr(TP, "tails", count(
         "msm_tails", lambda deg, levels, m, nb: C.infinity_planes(deg, m.shape[0], "cpu")))
-    monkeypatch.setattr(TP, "_finish", count(
+    monkeypatch.setattr(TP, "finish", count(
         "msm_finish", lambda deg, tot, head, c, k: C.infinity_planes(deg, k, "cpu")))
     for deg, lanes in max_lanes.items():
         monkeypatch.setitem(TP.MAX_LANES, deg, lanes)

@@ -7,7 +7,7 @@ proof, its verification, the unsatisfied and wrong-input rejections) and
 the zero-payload credential flow through claims.api.Context, imports the
 measuring path (bench, parallel.prove, utils.profiling and every module of
 tools) and drives one probe, and runs the two whole-loop dispatchers
-(ff.montgomery.mont_pow_bits, msm.pippenger._finish) on CPU tensors, the
+(ff.montgomery.mont_pow_bits, msm.gpu_msm.finish) on CPU tensors, the
 multi-device path on a mesh of one process (parallel.mesh, a sharded MSM
 of two points, a four-step NTT round trip) and the legacy package (a
 Lamport signature, the Merkle golden pairing, an ECDSA signature, the PoC
@@ -64,11 +64,11 @@ from zklaim_tpu_torch.tools import (
 probe_rows = pallas_op_micro.measure("cpu", widths=(16,)) + mont_micro.measure("cpu", widths=(4,))
 from zklaim_tpu_torch.ec import curve, rcb_schedule
 from zklaim_tpu_torch.ff import montgomery
-from zklaim_tpu_torch.msm import pippenger
+from zklaim_tpu_torch.msm import gpu_msm
 x = torch.from_numpy(montgomery.encode_ints(montgomery.FQ, [0, 1, 7]).astype("int32"))
 inverses = montgomery.decode_ints(montgomery.FQ, montgomery.mont_inv(montgomery.FQ, x))
 infinity = curve.infinity_planes(1, 16, "cpu")
-finished = pippenger._finish(1, infinity, infinity, 16, 1)
+finished = gpu_msm.finish(1, infinity, infinity, 16, 1)
 schedule_words = len(rcb_schedule.pack(rcb_schedule.finish_schedule(2)))
 ntt_row = bench.bench_ntt(3, runs=1, device="cpu")
 import hashlib, random

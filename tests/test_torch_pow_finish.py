@@ -1,13 +1,13 @@
 """The two whole-loop entries of the port on the CPU: the fixed-exponent
 power (ff.montgomery.mont_pow_bits, kernel mont_pow on the card) and the MSM
-finish (msm.pippenger._finish, kernel msm_finish on the card).
+finish (msm.gpu_msm.finish, kernel msm_finish on the card).
 
 On CPU tensors both dispatchers run their plain versions; these are held to
 the JAX package (zklaim_tpu.ff.montgomery.mont_pow_bits, msm.pippenger._finish)
 limb for limb and to Python integers / hostcurve.  The schedule that the
 kernel msm_finish interprets (ec.rcb_schedule) is run here on Python integers,
 step by step as the kernel runs it, and held to the plain point formulas and
-to _finish_plain; the packed words are decoded as csrc/curve.cu decodes them.
+to finish_plain; the packed words are decoded as csrc/curve.cu decodes them.
 Integer arithmetic throughout: tolerance 0.  Sizes are small: short
 exponents (the eager JAX loop costs a product a bit), c = 16 finishes except
 for the one comparison with the JAX _finish, which reuses the shapes
@@ -31,13 +31,13 @@ from zklaim_tpu.msm import pippenger as JP
 
 from zklaim_tpu_torch import kernels as K
 from zklaim_tpu_torch.ec import curve as C
-from zklaim_tpu_torch.ec import gpu_curve as G
 from zklaim_tpu_torch.ec import rcb_schedule as S
 from zklaim_tpu_torch.ec.hostcurve import g1_generator, g2_generator
 from zklaim_tpu_torch.ff import montgomery as TM
 from zklaim_tpu_torch.ff.limbs import ints_to_limbs
 from zklaim_tpu_torch.ff.params import MONT_R, Q, R
 from zklaim_tpu_torch.kernels import cases as KC
+from zklaim_tpu_torch.msm import gpu_msm as GM
 from zklaim_tpu_torch.msm import pippenger as TP
 
 # The suite runs as several worker processes on a few cores; torch's
@@ -130,7 +130,7 @@ def test_kernel_wrappers_take_no_cpu_tensor():
         TM.mont_pow_k1(TM.FQ, a, [1, 0, 1])
     p = C.infinity_planes(1, 16, "cpu")
     with pytest.raises(ValueError, match="CUDA"):
-        G.msm_finish_planes(1, p, p, 16, 1)
+        GM.msm_finish_planes(1, p, p, 16, 1)
 
 
 # ---------------------------------------------------------------------------
@@ -289,11 +289,11 @@ def test_schedule_offsets_match_the_cuda_source():
     pairs = {"FIN_G": S.HDR_G, "FIN_NS": S.HDR_NS, "FIN_NCONST": S.HDR_NCONST,
              "FIN_SDBL": S.HDR_SDBL, "FIN_SADD": S.HDR_SADD, "FIN_ACC": S.HDR_ACC,
              "FIN_Q": S.HDR_Q, "FIN_HDR": S.HDR_WORDS, "FIN_MUL": S.MUL, "FIN_ADD": S.ADD,
-             "FIN_SUB": S.SUB, "FIN_IDLE": S.IDLE, "FIN_THREADS": 32 * G.FINISH_MAX_WARPS}
+             "FIN_SUB": S.SUB, "FIN_IDLE": S.IDLE, "FIN_THREADS": 32 * GM.FINISH_MAX_WARPS}
     for name, value in pairs.items():
         assert define(name) == value, name
     assert re.search(r"#define FIN_SHARED_MAX \((\d+) \* 1024\)", src).group(1) == str(
-        G.FINISH_SHARED_BYTES // 1024)
+        GM.FINISH_SHARED_BYTES // 1024)
     field = (CSRC / "field.cuh").read_text()
     body = re.search(r"ZK_ONE[^=]*=\s*\{(.*?)\};", field, re.S).group(1)
     ones = [int(h, 16) for h in re.findall(r"0x([0-9a-f]+)u", body)]
@@ -338,8 +338,8 @@ def test_finish_plain_matches_jax_finish_per_sum():
     dispatcher on CPU planes is the plain version."""
     k, c, W = 2, 8, 32
     tot_h, head_h, tot, head = _partials(1, g1_generator, k * W, 31)
-    got = TP._finish(1, tot, head, c, k)
-    assert torch.equal(got, TP._finish_plain(1, tot, head, c, k))
+    got = GM.finish(1, tot, head, c, k)
+    assert torch.equal(got, GM.finish_plain(1, tot, head, c, k))
     assert got.shape == (3, 16, k)
 
     def planes(t):                      # (3, 16, W) -> three (16, W) u32 planes
@@ -358,7 +358,7 @@ def test_finish_plain_matches_jax_finish_per_sum():
 def test_finish_plain_matches_host_points(deg, gen, k):
     c, W = 16, 16
     tot_h, head_h, tot, head = _partials(deg, gen, k * W, 50 + deg)
-    got = TP._finish(deg, tot, head, c, k)
+    got = GM.finish(deg, tot, head, c, k)
     assert C.planes_to_host_points(deg, got) == _host_finish(tot_h, head_h, c, k)
 
 
@@ -368,9 +368,9 @@ def test_finish_plain_matches_host_points(deg, gen, k):
 def test_interpreted_finish_matches_finish_plain(deg, gen, k, c):
     """The kernel's two phases on Python integers -- the schedule, the lane
     order i W + w, the negated head, acc = infinity from the constants --
-    give _finish_plain's planes limb for limb."""
+    give finish_plain's planes limb for limb."""
     _, _, tot, head = _partials(deg, gen, k * (256 // c), 60 + deg + c)
-    want = _plane_components(TP._finish_plain(deg, tot, head, c, k))
+    want = _plane_components(GM.finish_plain(deg, tot, head, c, k))
     got = S.interpret_finish(S.finish_schedule(deg), _plane_components(tot),
                              _plane_components(head), c, k)
     assert got == want

@@ -33,11 +33,11 @@ from zklaim_tpu_torch.ec import curve as C
 from zklaim_tpu_torch.ec.gpu_curve import point_add_plain
 from zklaim_tpu_torch.ff.montgomery import FQ
 from zklaim_tpu_torch.ff.params import Q
-from zklaim_tpu_torch.kernels import KERNELS, PROBE_KERNELS, SOURCES
+from zklaim_tpu_torch.kernels import KERNELS, PROBE_KERNELS
 from zklaim_tpu_torch.kernels.cases import (
     LANE_CLOCKS_PER_S, bound_ms, curve_inputs, max_abs_err, probe_cases, random_field, random_points,
 )
-from zklaim_tpu_torch.tools import grid_micro, mont_micro, mont_wide_ab, padd_micro, pallas_op_micro
+from zklaim_tpu_torch.tools import grid_micro, mont_micro, padd_micro, pallas_op_micro
 
 torch.set_num_threads(1)
 
@@ -187,24 +187,6 @@ def test_mont_chain_plan_spreads_lanes_over_the_sms(n):
         lanes = (np.arange(ctas)[:, None] * threads + np.arange(threads)).ravel()
         lanes = lanes[lanes < n]
         assert len(lanes) == n and (np.bincount(lanes, minlength=n) == 1).all(), (n, sms)
-
-
-def test_mont_wide_ab_names_the_variants_of_its_source():
-    """tools/mont_wide_ab.py's VARIANTS are csrc/mont_wide_variants.cu's, in
-    the order of the source's header list and of its VARIANTS[] table; the
-    source is built on its own, not into the kernel library; every product
-    in it is K6's step, a squaring by fe_mul<ZK_FQ>; and the tool refuses
-    the CPU."""
-    src = mont_wide_ab.SOURCE.read_text()
-    listed = [(int(i), name) for i, name in re.findall(r"^//\s+(\d+) (\w+)\s", src, re.M)]
-    assert listed == list(enumerate(mont_wide_ab.VARIANTS))
-    table = re.search(r"const Variant VARIANTS\[\] = \{(.*?)\n\};", src, re.S).group(1)
-    assert len(re.findall(r"\{\w+(?:<\w+>)?, \d, \d\}", table)) == len(mont_wide_ab.VARIANTS)
-    assert mont_wide_ab.SOURCE.name not in SOURCES
-    squarings = re.findall(r"fe_mul<ZK_FQ>\(([\w\[\]]+), \1\)", src)
-    assert squarings and len(squarings) == src.count("fe_mul")
-    with pytest.raises(RuntimeError):
-        mont_wide_ab.measure("cpu", 1)
 
 
 def _numpy_op(op: str, v: np.ndarray, k: int) -> np.ndarray:

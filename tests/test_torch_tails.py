@@ -1,14 +1,14 @@
-"""The bucket-tail stage of the port's MSM on the CPU: msm.pippenger._tails,
+"""The bucket-tail stage of the port's MSM on the CPU: msm.gpu_msm.tails,
 kernel msm_tails on the card (K4's second entry).
 
-On CPU tensors the dispatcher runs `_tails_plain`, the JAX package's loop (a
+On CPU tensors the dispatcher runs `tails_plain`, the JAX package's loop (a
 plain add and a select a level).  Here it is held to that loop as the JAX
 package runs it (its own helpers and its add, jitted once), the kernel's
 lane walk (ec.rcb_schedule.tail_walk: the set bits of m lowest first, the
 clamp, the reversal by __brevll and a shift) is held to the reads of
-`_tails_plain` for every prefix length of a batch, and the add-only schedule
+`tails_plain` for every prefix length of a batch, and the add-only schedule
 the kernel runs is interpreted on Python integers along each lane's walk and
-held to `_tails_plain`'s planes.  Integer arithmetic throughout: tolerance 0.
+held to `tails_plain`'s planes.  Integer arithmetic throughout: tolerance 0.
 Sizes are small: c = 4 passes of 64 to 256 lanes.
 """
 
@@ -26,17 +26,16 @@ from zklaim_tpu.ec import jaxcurve as JC
 from zklaim_tpu.msm import pippenger as JP
 
 from zklaim_tpu_torch import kernels as K
-from zklaim_tpu_torch.ec import gpu_curve as G
 from zklaim_tpu_torch.ec import rcb_schedule as S
 from zklaim_tpu_torch.kernels import cases as KC
-from zklaim_tpu_torch.msm import pippenger as TP
+from zklaim_tpu_torch.msm import gpu_msm as GM
 from zklaim_tpu_torch.ntt import gpu_ntt
 
 # The suite runs as several worker processes on a few cores; torch's
 # intra-op threads would only contend with them.
 torch.set_num_threads(1)
 
-CSRC = Path(G.__file__).parent.parent / "csrc"
+CSRC = Path(GM.__file__).parent.parent / "csrc"
 
 
 @pytest.fixture(autouse=True)
@@ -67,13 +66,13 @@ def _pass(deg, k, lanes, seed, c=4):
 def test_kernel_walk_reads_what_tails_plain_reads(nb):
     """Every prefix length 0 .. 2^nb of a batch of 2^nb lanes (and a few
     with bits above nb, which name no level): the kernel's walk reads
-    exactly the (level, column) pairs that _tails_plain adds, level by level
+    exactly the (level, column) pairs that tails_plain adds, level by level
     in the same order."""
     m = list(range((1 << nb) + 1)) + [(1 << (nb + 1)) + 5, (3 << nb) | 6]
     mt = torch.tensor(m, dtype=torch.int64)
     plain = [[] for _ in m]
     for t in range(nb + 1):
-        bit, store = TP._tail_nodes(mt, nb, t)
+        bit, store = GM._tail_nodes(mt, nb, t)
         for i in torch.nonzero(bit).flatten().tolist():
             plain[i].append((t, int(store[i])))
     for i, mi in enumerate(m):
@@ -88,22 +87,22 @@ def test_kernel_walk_reads_what_tails_plain_reads(nb):
 def test_interpreted_tails_match_tails_plain(deg, k, lanes):
     """The add-only schedule, run on Python integers along each lane's walk
     as the kernel runs it (acc = infinity from the constants, one add a set
-    bit), gives _tails_plain's planes limb for limb."""
+    bit), gives tails_plain's planes limb for limb."""
     levels, m, nb = _pass(deg, k, lanes, 10 * deg + k)
-    want = _plane_components(TP._tails_plain(deg, levels, m, nb))
+    want = _plane_components(GM.tails_plain(deg, levels, m, nb))
     got = S.interpret_tails(S.tails_schedule(deg), [_plane_components(lv) for lv in levels],
                             m.tolist(), nb)
     assert got == want
 
 
 def test_tails_plain_matches_the_jax_tail_loop():
-    """G1, k = 2: _tails_plain on a pass's levels equals the JAX package's
+    """G1, k = 2: tails_plain on a pass's levels equals the JAX package's
     tail loop (msm/pippenger.py, the loop after the searchsorted) run with
     its own helpers on the same levels and prefix lengths, limb for limb,
     and the dispatcher on CPU planes is the plain version."""
     levels, m, nb = _pass(1, 2, 128, 7)
-    got = TP._tails(1, levels, m, nb)
-    assert torch.equal(got, TP._tails_plain(1, levels, m, nb))
+    got = GM.tails(1, levels, m, nb)
+    assert torch.equal(got, GM.tails_plain(1, levels, m, nb))
 
     add = jax.jit(JP._plane_add(JC.FQ_OPS))
     jm = jnp.asarray(m.numpy().astype(np.int32))
@@ -151,7 +150,7 @@ def test_msm_tails_wrapper_takes_no_cpu_tensor():
     only through the dispatcher."""
     levels, m, nb = _pass(1, 1, 64, 3)
     with pytest.raises(ValueError, match="CUDA"):
-        G.msm_tails_planes(1, levels, m, nb)
+        GM.msm_tails_planes(1, levels, m, nb)
 
 
 def test_tail_cases_build_on_the_cpu():
@@ -172,7 +171,7 @@ def test_tail_cases_build_on_the_cpu():
 def test_tails_constants_match_the_cuda_sources():
     """The limits the Python side and csrc/ must agree on."""
     curve = (CSRC / "curve.cu").read_text()
-    assert int(re.search(r"#define TAIL_MAX_LEVELS (\d+)", curve).group(1)) == G.TAILS_MAX_LEVELS
+    assert int(re.search(r"#define TAIL_MAX_LEVELS (\d+)", curve).group(1)) == GM.TAILS_MAX_LEVELS
     ntt = (CSRC / "ntt.cu").read_text()
     kib = int(re.search(r"#define NTT_PASS_SHARED_MAX \((\d+) \* 1024\)", ntt).group(1))
     assert kib * 1024 == gpu_ntt.PASS_ELEMENTS * 32

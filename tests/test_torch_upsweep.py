@@ -1,8 +1,8 @@
 """The upsweep and the Abel tree of the port's MSM on the CPU:
-msm.pippenger._upsweep and _abel, kernels msm_upsweep and msm_abel on the
+msm.gpu_msm.upsweep and abel, kernels msm_upsweep and msm_abel on the
 card (K4's third and fourth entries).
 
-On CPU tensors the dispatchers run `_upsweep_plain` and `_abel_plain`, the
+On CPU tensors the dispatchers run `upsweep_plain` and `abel_plain`, the
 loops of the plain add over the halves.  Here the launch plan
 (msm/upsweep_plan.py) is held to its contract -- every level built once, in
 order, down to width 1, each launch within a CTA's shared memory and at
@@ -25,7 +25,7 @@ import torch
 from zklaim_tpu_torch import kernels as K
 from zklaim_tpu_torch.ec import gpu_curve as G
 from zklaim_tpu_torch.kernels import cases as KC
-from zklaim_tpu_torch.msm import pippenger as TP
+from zklaim_tpu_torch.msm import gpu_msm as GM
 from zklaim_tpu_torch.msm import upsweep_plan as UP
 
 # The suite runs as several worker processes on a few cores; torch's
@@ -115,7 +115,7 @@ def test_interpreted_upsweep_matches_the_loop(monkeypatch, deg, lanes, held):
     assert len(got) == len(want)
     for t, (g, w) in enumerate(zip(got, want)):
         assert torch.equal(g, w), t
-    assert all(torch.equal(g, w) for g, w in zip(TP._upsweep(deg, level0), want))
+    assert all(torch.equal(g, w) for g, w in zip(GM.upsweep(deg, level0), want))
 
 
 @pytest.mark.parametrize("deg,c,k", [(1, 4, 1), (1, 4, 4), (1, 8, 1), (1, 8, 4), (2, 4, 1),
@@ -130,7 +130,7 @@ def test_interpreted_abel_matches_the_halving_loop(deg, c, k):
     want = _halves_loop(deg, heads, kw)[-1]
     assert UP.abel_plan(deg, B * kw, kw) == [c - 1]
     assert torch.equal(UP.interpret_abel(deg, heads, kw), want)
-    assert torch.equal(TP._abel(deg, heads, kw), want)
+    assert torch.equal(GM.abel(deg, heads, kw), want)
 
 
 @pytest.mark.parametrize("deg,levels,kw,held,plan", [(1, 11, 2, None, [6, 5]),
@@ -166,9 +166,9 @@ def test_upsweep_and_abel_wrappers_take_no_cpu_tensor():
     through the dispatchers."""
     level0 = KC.random_points(1, 64, np.random.default_rng(3), "cpu")
     with pytest.raises(ValueError, match="CUDA"):
-        G.msm_upsweep_planes(1, level0, UP.upsweep_plan(1, 6))
+        GM.msm_upsweep_planes(1, level0, UP.upsweep_plan(1, 6))
     with pytest.raises(ValueError, match="CUDA"):
-        G.msm_abel_planes(1, level0, 16, [2])
+        GM.msm_abel_planes(1, level0, 16, [2])
 
 
 def test_upsweep_cases_build_on_the_cpu():

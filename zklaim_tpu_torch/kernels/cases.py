@@ -76,7 +76,8 @@ from ..ec.hostcurve import g1_generator, g2_generator
 from ..ff import montgomery as M
 from ..ff.limbs import ints_to_limbs, to_tensor
 from ..ff.montgomery import FQ, FR
-from ..msm import pippenger as P
+from ..msm import gpu_msm
+from ..msm.upsweep_plan import upsweep_plan
 from ..ntt import gpu_ntt
 from ..ntt.radix2 import get_domain
 
@@ -353,15 +354,15 @@ def front_cases(device, rng: np.random.Generator,
         rows, scalars = front_inputs(deg, k, c, lanes, rng, device)
         n, nb = rows[0].shape[0], lanes.bit_length() - 1
         cases.append(Case("msm_digits", f"msm_digits k={k} c={c} lanes=2^{nb}",
-                          lambda s=scalars, c=c: P._digit_keys(s, c),
-                          lambda s=scalars, c=c: P._digit_keys_plain(s, c),
+                          lambda s=scalars, c=c: gpu_msm.digit_keys(s, c),
+                          lambda s=scalars, c=c: gpu_msm.digit_keys_plain(s, c),
                           k * n, 0, extra_bytes=8 * lanes))
-        keys, idx = P._digit_keys_plain(scalars, c)
+        keys, idx = gpu_msm.digit_keys_plain(scalars, c)
         perm = torch.sort(keys, stable=True)[1]
         cases.append(Case("msm_gather", f"msm_gather G{deg} k={k} c={c} lanes=2^{nb}",
-                          lambda d=deg, r=rows, i=idx, p=perm, nb=nb: P._signed_gather(d, r, i, p,
-                                                                                       nb),
-                          lambda d=deg, r=rows, i=idx, p=perm, nb=nb: P._signed_gather_plain(
+                          lambda d=deg, r=rows, i=idx, p=perm, nb=nb: gpu_msm.signed_gather(
+                              d, r, i, p, nb),
+                          lambda d=deg, r=rows, i=idx, p=perm, nb=nb: gpu_msm.signed_gather_plain(
                               d, r, i, p, nb),
                           3 * deg * (k * n + lanes), 0, extra_bytes=12 * lanes))
     return cases
@@ -376,7 +377,7 @@ def tail_inputs(deg: int, k: int, c: int, lanes: int, rng: np.random.Generator, 
     them."""
     W, B = 256 // c, 1 << (c - 1)
     nb = lanes.bit_length() - 1
-    levels = P._upsweep(deg, pass_points(deg, lanes, rng, device))
+    levels = gpu_msm.upsweep(deg, pass_points(deg, lanes, rng, device))
     win = np.arange(k * W)[:, None]
     keys = np.sort((win * (B + 1) + np.abs(rng.integers(-B, B, size=(k * W, lanes // (k * W)))))
                    .reshape(-1))
@@ -398,8 +399,8 @@ def tails_cases(device, rng: np.random.Generator,
         adds = sum(bin(v & mask).count("1") for v in m.tolist())
         cases.append(Case("msm_tails", f"K4 msm_tails G{deg} k={k} c={c} lanes=2^{nb} "
                                        f"tails={m.shape[0]} adds={adds}",
-                          lambda d=deg, lv=levels, m=m, nb=nb: P._tails(d, lv, m, nb),
-                          lambda d=deg, lv=levels, m=m, nb=nb: P._tails_plain(d, lv, m, nb),
+                          lambda d=deg, lv=levels, m=m, nb=nb: gpu_msm.tails(d, lv, m, nb),
+                          lambda d=deg, lv=levels, m=m, nb=nb: gpu_msm.tails_plain(d, lv, m, nb),
                           3 * deg * (adds + m.shape[0]), ADD_PRODUCTS[deg] * adds,
                           extra_bytes=8 * m.shape[0], plain_once=True))
     return cases
@@ -417,19 +418,19 @@ def upsweep_cases(device, rng: np.random.Generator, passes=((1, 4, 8, 1 << 21), 
     for deg, k, c, lanes in passes:
         nb = lanes.bit_length() - 1
         level0 = pass_points(deg, lanes, rng, device)
-        launches = len(P.upsweep_plan(deg, nb))
+        launches = len(upsweep_plan(deg, nb))
         cases.append(Case("msm_upsweep", f"K4 msm_upsweep G{deg} k={k} c={c} lanes=2^{nb} "
                                          f"({launches} launches)",
-                          lambda d=deg, x=level0: P._upsweep(d, x),
-                          lambda d=deg, x=level0: P._upsweep_plain(d, x),
+                          lambda d=deg, x=level0: gpu_msm.upsweep(d, x),
+                          lambda d=deg, x=level0: gpu_msm.upsweep_plain(d, x),
                           3 * deg * (2 * lanes - 1), ADD_PRODUCTS[deg] * (lanes - 1),
                           plain_once=True))
     for deg, k, c, _ in passes:
         kw, B = k * 256 // c, 1 << (c - 1)
         heads = pass_points(deg, B * kw, rng, device)
         cases.append(Case("msm_abel", f"K4 msm_abel G{deg} k={k} c={c} heads={B * kw} to {kw}",
-                          lambda d=deg, x=heads, kw=kw: P._abel(d, x, kw),
-                          lambda d=deg, x=heads, kw=kw: P._abel_plain(d, x, kw),
+                          lambda d=deg, x=heads, kw=kw: gpu_msm.abel(d, x, kw),
+                          lambda d=deg, x=heads, kw=kw: gpu_msm.abel_plain(d, x, kw),
                           3 * deg * (B * kw + kw), ADD_PRODUCTS[deg] * (B - 1) * kw,
                           plain_once=True))
     return cases
@@ -458,8 +459,9 @@ def loop_cases(device, rng: np.random.Generator, n_pow: int = 1 << 15,
         tot, head = curve_inputs(deg, k * W, rng, device)
         per_lane = ((c - 1) + c) * DOUBLE_PRODUCTS[deg] + 2 * ADD_PRODUCTS[deg]
         cases.append(Case("msm_finish", f"K5 msm_finish G{deg} k={k} W={W} c={c}",
-                          lambda d=deg, t=tot, h=head, c=c, k=k: P._finish(d, t, h, c, k),
-                          lambda d=deg, t=tot, h=head, c=c, k=k: P._finish_plain(d, t, h, c, k),
+                          lambda d=deg, t=tot, h=head, c=c, k=k: gpu_msm.finish(d, t, h, c, k),
+                          lambda d=deg, t=tot, h=head, c=c, k=k: gpu_msm.finish_plain(
+                              d, t, h, c, k),
                           3 * deg * (2 * k * W + k), per_lane * k * W, plain_once=True))
     return cases
 

@@ -3,7 +3,7 @@ their interpreters on the CPU.
 
 A pass's upsweep builds levels 1 ... nb of a flat batch of 2^nb lanes from
 level 0: column j of level t + 1 is column j + column j + w_t / 2 of level t
-(w_t = 2^(nb - t)), the loop msm.pippenger._upsweep_plain runs.  Unrolled
+(w_t = 2^(nb - t)), the loop msm.gpu_msm.upsweep_plain runs.  Unrolled
 over r levels, column j of level t + r is a tree over the 2^r columns
 j + i w_{t+r} of level t, i < 2^r, and every node of that tree lies in the
 same residue class mod w_{t+r}.  So a launch that computes levels

@@ -4,9 +4,9 @@ Counterpart of tools/msm_stages.py.  The pipeline runs eagerly here, so the
 stages are timed where they run: the spans msm.pippenger._window_partials
 opens around each stage (digits, keys and gather index; the stable sort;
 the signed gather in bit-reversed order; upsweep tree; bucket-tail
-prefixes; Abel reduction)
-and _finish around the finish, recorded with a synchronise at each span's
-end (utils.profiling.recording(sync=device)).  One pass of the flat batch
+prefixes; Abel reduction) and msm_many around the finish, as msm_pow2 runs
+them, recorded with a synchronise at each span's end
+(utils.profiling.recording(sync=device)).  One pass of the flat batch
 is timed (n x 256 / c lanes, at most MAX_LANES), the least of `runs`
 repeats a stage.
 
@@ -59,8 +59,7 @@ def measure(device, log2n: int = 16, c: int = 8, runs: int = 3, deg: int = 1,
     for _ in range(runs + 1):                               # the first is the warm-up
         sync(device)
         with recording(sync=device) as rec:
-            tot, head = P._window_partials(deg, [(rows, scalars)], c)
-            P._finish(deg, tot, head, c, 1)
+            P.msm_pow2(deg, rows, scalars, c)
         ms = {name: own / 1e6 for (_, _, name, _), own in zip(rec.spans, rec.self_ns())}
         best = {s: min(best[s], ms[f"msm.{s}"]) for s in STAGES}
     out, cum = [], 0.0
@@ -79,6 +78,7 @@ def upsweep_launches(device, deg: int, nb: int, seed: int = 1) -> dict:
     from .. import kernels as K
     from ..ec import gpu_curve as G
     from ..kernels.cases import pass_points
+    from ..msm import gpu_msm
     from ..msm import upsweep_plan as UP
 
     device = torch.device(device)
@@ -95,10 +95,10 @@ def upsweep_launches(device, deg: int, nb: int, seed: int = 1) -> dict:
             lv = G.point_add_halves(deg, lv)
 
     plan = UP.upsweep_plan(deg, nb)
-    levels = G.msm_upsweep_planes(deg, level0, plan)
+    levels = gpu_msm.msm_upsweep_planes(deg, level0, plan)
     if not all(torch.equal(a, b) for a, b in zip(levels, loop)):
         raise AssertionError(f"G{deg}: msm_upsweep's levels differ from the K4 loop's")
-    table = G._level_table(levels)
+    table = gpu_msm._level_table(levels)
 
     def one(t, r, cols):
         K.launch("msm_upsweep", deg, ctypes.addressof(table), nb + 1, t, r, cols, device=device)
@@ -111,8 +111,8 @@ def upsweep_launches(device, deg: int, nb: int, seed: int = 1) -> dict:
                             for lv in loop[:-1]],
             "k4_loop_ms": device_ms(whole_loop, calls=3),
             "launch_ms": [device_ms(lambda p=p: one(*p)) for p in plan],
-            "plan_ms": device_ms(lambda: G.msm_upsweep_planes(deg, level0, plan), calls=3),
-            "first_levels_ms": {r: [v, device_ms(lambda v=v: G.msm_upsweep_planes(
+            "plan_ms": device_ms(lambda: gpu_msm.msm_upsweep_planes(deg, level0, plan), calls=3),
+            "first_levels_ms": {r: [v, device_ms(lambda v=v: gpu_msm.msm_upsweep_planes(
                 deg, level0, v), calls=3)] for r, v in variants.items()},
             "one_cta_ms_by_levels": {r: device_ms(lambda r=r: one(nb - r, r, 1))
                                      for r in range(1, min(nb, UP.held_levels(deg, 1)) + 1)}}

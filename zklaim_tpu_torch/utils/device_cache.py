@@ -2,7 +2,7 @@
 
 A few tables are made at first use and kept for the process: the NTT
 domain's twiddles (ntt.radix2.get_domain), the packed finish and tails
-schedules and the infinity row of the MSM kernels (ec.gpu_curve), 1 in
+schedules and the infinity row of the MSM kernels (msm.gpu_msm), 1 in
 Montgomery form (ec.curve) and the fixed-base tables (msm.fixedbase).
 Each is made on the current stream of whichever thread asks first, then
 handed to every later caller, which may read it on another stream: several

@@ -209,9 +209,10 @@ def test_the_span_tree_of_a_proof_generate(flow):
     (a fresh context: circuit, pk import, witness, the prover's stages, the
     proof's bytes), the reprove on the cached key, the verifier's three;
     every span closed, the sums' lanes counted once a proof (N = 0:
-    G1 4 sums of 2 points, 6 of them infinity; G2 1 of 2, 1), each
-    proof_generate the only one in flight (one thread), and no witness hook
-    run one by one."""
+    G1 4 sums of 2 points, 6 of them infinity; G2 1 of 2, 1), the upload's
+    bytes once a proof (the witness's int64 lane of one variable, no big
+    row: 8 B), each proof_generate the only one in flight (one thread), and
+    no witness hook run one by one."""
     rec = flow["recorder"]
     spans = rec.spans
     assert all(end is not None for _, end, _, _ in spans)
@@ -247,6 +248,7 @@ def test_the_span_tree_of_a_proof_generate(flow):
     for _, name, n in rec.counts:
         counted[name] = counted.get(name, 0) + n
     assert counted == {"msm.lanes": 10 * proofs, "msm.padded_lanes": 7 * proofs,
+                       "groth16.upload_bytes": 8 * proofs,
                        "claims.in_flight": len(at("claims.proof_generate")),
                        "claims.witness_py_hooks": 0}
 

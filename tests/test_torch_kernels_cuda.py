@@ -385,6 +385,40 @@ def test_msm_many_enqueues_without_waiting_for_the_card(cuda):
     assert max_abs_err(list(got), list(want)) == 0
 
 
+def test_witness_upload_enqueues_without_waiting_for_the_card(cuda):
+    """After a warm-up, upload_witness of an N = 20-wide WitnessVec (its
+    int64 lane, 123 big rows, one over a stale small slot) sends from pinned
+    memory and builds the limbs on the card with no call that waits for it
+    (torch's sync debug mode raises on a pageable upload or a synchronise),
+    on the default stream and on a holder's own; the limbs equal the CPU
+    path's limb for limb."""
+    import numpy as np
+
+    from zklaim_tpu_torch.ff.params import R
+    from zklaim_tpu_torch.groth16.api import upload_witness
+    from zklaim_tpu_torch.r1cs.system import WitnessVec
+
+    rng, rnd = np.random.default_rng(21), random.Random(21)
+    w = WitnessVec(508_203)
+    w.small[:] = rng.integers(0, 1 << 62, size=len(w), dtype=np.int64)
+    for i in rng.choice(len(w), size=123, replace=False).tolist():
+        w[i] = rnd.randrange(1 << 62, R)
+    assert all(w.small[i] for i in w.big)             # every big row over a stale slot
+    want = upload_witness(w, "cpu")
+    upload_witness(w, cuda)
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream(cuda)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = upload_witness(w, cuda)
+        with torch.cuda.stream(side):
+            got_side = upload_witness(w, cuda)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want) and torch.equal(got_side.cpu(), want)
+
+
 def test_front_wrappers_reject_bad_operands(cuda):
     from zklaim_tpu_torch.msm.gpu_msm import msm_digit_keys, msm_gather_planes
 

@@ -6,8 +6,9 @@ prove draws r, s), so one seed gives the same keys and proofs in both
 packages.  Work placement:
   - setup: QAP instance map on host ints, then the fixed-base comb on the
     device for the pk tables (one batched G1 call, one G2 call);
-  - prove: to_mont, the sparse witness map and the NTT pipeline for H on
-    the device, the satisfaction check (raises before any MSM), five
+  - prove: the witness's limbs made on the device from its int64 lane
+    (upload_witness), to_mont, the sparse witness map and the NTT pipeline
+    for H on the device, the satisfaction check (raises before any MSM), five
     Pippenger MSMs -- the four G1 sums as one batched msm_many, the G2
     sum alone -- launched back to back without a synchronisation between
     them, and the host finish on CurvePoints;
@@ -29,12 +30,13 @@ from ..ec import curve as C
 from ..ec.hostcurve import CurvePoint, g1_generator, g2_generator
 from ..ec.pairing import pairing_product_is_one
 from ..ff import montgomery as M
-from ..ff.limbs import ints_to_limbs, to_tensor
+from ..ff.limbs import NUM_LIMBS, ints_to_limbs, to_tensor
 from ..ff.montgomery import FR
 from ..ff.params import R
 from ..msm.fixedbase import fixed_base_mul
 from ..msm.pippenger import msm_many, msm_pow2
-from ..utils.profiling import span
+from ..r1cs.system import WitnessVec
+from ..utils.profiling import count, span
 from .qap import QAP
 
 
@@ -152,6 +154,47 @@ def witness_plain_limbs(witness) -> np.ndarray:
     return ints_to_limbs(witness)
 
 
+def upload_witness(witness, device) -> torch.Tensor:
+    """The witness's (num_vars, 16) int32 plain limbs on `device`, limb for
+    limb to_tensor(witness_plain_limbs(witness), device).
+
+    A WitnessVec sends its int64 lane (8 B a variable) and its big rows (an
+    int64 index and 16 int32 limbs, 72 B a row), on the card from pinned
+    memory, queued on the current stream without waiting for it.  The
+    device makes the limbs in three launches: a zero fill; limbs 0-3, the
+    lane's four 16-bit words, by one strided copy of its int16 view into
+    the low halves of the int32 limbs (the bits of to_plain_limbs' shifts
+    and masks); the big rows written whole by index_copy_ (a big index's
+    small slot may hold a stale value).  A list[int] sends its host limbs
+    (64 B a variable).  Counter groth16.upload_bytes: the bytes sent."""
+    device = torch.device(device)
+    if not isinstance(witness, WitnessVec):
+        limbs = ints_to_limbs(witness)
+        count("groth16.upload_bytes", limbs.size * 4)
+        return to_tensor(limbs, device)
+    small = witness.small
+    big = witness.big
+    idx = np.fromiter(big.keys(), dtype=np.int64, count=len(big))
+    rows = ints_to_limbs(big.values()).astype(np.int32)
+    count("groth16.upload_bytes", small.nbytes + idx.nbytes + rows.nbytes)
+    n = small.shape[0]
+    out = torch.zeros((n, NUM_LIMBS), dtype=torch.int32, device=device)
+    out.view(torch.int16)[:, 0:8:2].copy_(_send(small, device).view(torch.int16).view(n, 4))
+    if len(big):
+        out.index_copy_(0, _send(idx, device), _send(rows, device))
+    return out
+
+
+def _send(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on `device`; to the card from pinned memory without
+    waiting (torch's host allocator keeps the pinned block until the copy
+    has run)."""
+    t = torch.from_numpy(arr)
+    if device.type == "cuda":
+        t = t.pin_memory()
+    return t.to(device, non_blocking=True)
+
+
 def h_plain(qap: QAP, w_plain: torch.Tensor, witness=None,
             what: str = "unsatisfied constraint") -> torch.Tensor:
     """Plain witness limbs -> plain H coefficients (m - 1, 16).
@@ -223,7 +266,7 @@ def prove(pk: ProvingKey, qap: QAP, witness, rng, msm_c: int = 8) -> Proof:
         s = rng.randrange(R)
 
         with span("groth16.upload"):
-            w_plain = to_tensor(witness_plain_limbs(witness), qap.device)
+            w_plain = upload_witness(witness, qap.device)
         h = h_plain(qap, w_plain, witness)
         return finish_proof(pk, *prove_sums(pk, w_plain, h, msm_c), r, s)
 

@@ -27,11 +27,10 @@ from __future__ import annotations
 
 import torch
 
-from ..ff.limbs import to_tensor
 from ..ff.params import R
 from ..groth16.api import (
-    ProvingKey, finish_proof, h_from_evals, prove_sums, satisfied, witness_evals,
-    witness_plain_limbs,
+    ProvingKey, finish_proof, h_from_evals, prove_sums, satisfied, upload_witness,
+    witness_evals,
 )
 
 
@@ -54,7 +53,7 @@ def batched_prove(mesh, pk: ProvingKey, qap, witnesses: list, rng, msm_c: int = 
     sums = []
     for wave in range(waves):
         first = wave * shards
-        w_plain = to_tensor(witness_plain_limbs(padded[first + me]), qap.device)
+        w_plain = upload_witness(padded[first + me], qap.device)
         evals = witness_evals(qap, w_plain)
         ok = satisfied(evals).reshape(1).to(torch.int32)
         flags = ok if mesh is None else mesh.all_gather(ok, axis).reshape(-1)

@@ -73,7 +73,6 @@ def measure(device, num_payloads: int = 1, reps: int = 2, seed: int = 5) -> list
     from ..claims import serde
     from ..claims.circuit import ZKlaimCircuit
     from ..ec import curve as C
-    from ..ff.limbs import to_tensor
     from ..groth16 import api as A
     from ..groth16.qap import QAP
     from ..msm.pippenger import msm_pow2
@@ -105,7 +104,7 @@ def measure(device, num_payloads: int = 1, reps: int = 2, seed: int = 5) -> list
         m.restart()
         w = circ.witness(inputs)
         m.mark("witness build (host)", g)
-        w_plain = to_tensor(A.witness_plain_limbs(w), device)
+        w_plain = A.upload_witness(w, device)
         m.mark("witness limbs -> device", g)
         h = A.h_plain(qap, w_plain, w)
         m.mark("h_pipeline (wmap+NTTs)", g)
@@ -127,7 +126,7 @@ def measure(device, num_payloads: int = 1, reps: int = 2, seed: int = 5) -> list
     for rep in range(reps):
         g = f"h split {rep}"
         w = circ.witness(inputs)
-        w_plain = to_tensor(A.witness_plain_limbs(w), device)
+        w_plain = A.upload_witness(w, device)
         m.restart()
         with recording(sync=device) as rec:
             A.h_plain(qap, w_plain, w)
@@ -140,7 +139,7 @@ def measure(device, num_payloads: int = 1, reps: int = 2, seed: int = 5) -> list
         w = circ.witness(inputs)
         m.restart()
         with device_trace(f"prove_{rep}"):
-            w_plain = to_tensor(A.witness_plain_limbs(w), device)
+            w_plain = A.upload_witness(w, device)
             h = A.h_plain(qap, w_plain, w)
             m.mark("upload + h_pipeline", g)
             g1, g2 = A.prove_sums(pk, w_plain, h)

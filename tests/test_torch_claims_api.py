@@ -206,13 +206,17 @@ def test_zero_payload_flow_statuses(flow):
 
 def test_the_span_tree_of_a_proof_generate(flow):
     """The spans of the flow: the issuer's setup, the holder's first proof
-    (a fresh context: circuit, pk import, witness, the prover's stages, the
-    proof's bytes), the reprove on the cached key, the verifier's three;
-    every span closed, the sums' lanes counted once a proof (N = 0:
-    G1 4 sums of 2 points, 6 of them infinity; G2 1 of 2, 1), the upload's
-    bytes once a proof (the witness's int64 lane of one variable, no big
-    row: 8 B), each proof_generate the only one in flight (one thread), and
-    no witness hook run one by one."""
+    (a fresh context: circuit, pk import -- the host decode, the checks, the
+    QAP --, witness with the witness program's build, the prover's stages,
+    the proof's bytes), the reprove on the cached key (no program build),
+    the verifier's three; every span closed, the sums' lanes counted once a
+    proof (N = 0: G1 4 sums of 2 points, 6 of them infinity; G2 1 of 2, 1),
+    the upload's bytes once a proof (the witness's int64 lane of one
+    variable, no big row: 8 B), each proof_generate the only one in flight
+    (one thread), no witness hook run one by one, and the pk's points and
+    bytes once an import that passes its checks (N = 0: 5 single points and
+    3 table rows, 724 B; the holder's, entry's own and the payload-count
+    failure's, whose pk is sound; the off-curve pk fails its check)."""
     rec = flow["recorder"]
     spans = rec.spans
     assert all(end is not None for _, end, _, _ in spans)
@@ -231,6 +235,10 @@ def test_the_span_tree_of_a_proof_generate(flow):
     assert children(first) == ["claims.circuit", "claims.pk_import", "claims.witness",
                                "groth16.prove", "claims.proof_bytes"]
     assert children(reprove) == ["claims.witness", "groth16.prove", "claims.proof_bytes"]
+    assert children(at("claims.pk_import", first)[0]) == [
+        "serde.pk_decode", "serde.pk_check", "groth16.qap"]
+    assert children(at("claims.witness", first)[0]) == ["claims.witness_program"]
+    assert children(at("claims.witness", reprove)[0]) == []
     prove = at("groth16.prove", first)[0]
     assert children(prove) == ["groth16.upload", "groth16.witness_map", "groth16.check",
                                "ntt.h", "msm.g1", "msm.g2", "groth16.finish"]
@@ -250,7 +258,8 @@ def test_the_span_tree_of_a_proof_generate(flow):
     assert counted == {"msm.lanes": 10 * proofs, "msm.padded_lanes": 7 * proofs,
                        "groth16.upload_bytes": 8 * proofs,
                        "claims.in_flight": len(at("claims.proof_generate")),
-                       "claims.witness_py_hooks": 0}
+                       "claims.witness_py_hooks": 0,
+                       "serde.pk_points": 8 * 3, "serde.pk_bytes": 724 * 3}
 
 
 def test_cli_bench_header_matches_jax_package():

@@ -45,6 +45,7 @@ from ..ff.hostfield import Fq2
 from ..ff.limbs import NUM_LIMBS, to_tensor
 from ..ff.params import Q, R
 from ..groth16.api import Proof, ProvingKey, VerifyingKey
+from ..utils.profiling import count, span
 
 MAGIC_PK = b"ZKPK"
 MAGIC_VK = b"ZKVK"
@@ -139,39 +140,38 @@ def g2_batch_to_bytes(rows: torch.Tensor) -> bytes:
     return _batch_to_bytes(2, rows)
 
 
-def _batch_from_limbs(deg: int, x, y, inf, what: str, device) -> torch.Tensor:
-    """Shared deserialize tail: to the device, to Montgomery projective
-    form, the on-curve check of every point, packed rows out."""
+def _batch_decode(deg: int, raw: bytes, n: int, device) -> tuple:
+    """n points of `raw` (64 deg B each) -> plain affine limbs and the
+    infinity mask on the device: the host's part of a table's parse (the
+    limb shuffle and the range check), then the send."""
+    if len(raw) != 64 * deg * n:
+        raise SerdeError(f"truncated G{deg} point array")
+    arr = np.frombuffer(raw, dtype=np.uint8).reshape(n, 64 * deg)
+    shape = (n, 32) if deg == 1 else (n, 2, 32)
+    x = be_bytes_to_limbs(arr[:, : 32 * deg].reshape(shape))
+    y = be_bytes_to_limbs(arr[:, 32 * deg :].reshape(shape))
+    axes = tuple(range(1, x.ndim))
+    inf = ~np.logical_or(x.any(axis=axes), y.any(axis=axes))
+    if _any_coord_ge_q(arr[~inf].reshape(-1, 32)):
+        raise SerdeError(f"G{deg} coordinate out of range")
+    return to_tensor(x, device), to_tensor(y, device), torch.from_numpy(inf).to(device)
+
+
+def _batch_check(deg: int, decoded: tuple) -> torch.Tensor:
+    """The device's part of a table's parse: to Montgomery projective form,
+    the on-curve check of every point, packed rows out."""
     f = C.ops_for(deg)
-    pts = C.affine_limbs_to_proj(
-        f, to_tensor(x, device), to_tensor(y, device), torch.from_numpy(inf).to(device)
-    )
-    _check_batch(f, pts, what)
+    pts = C.affine_limbs_to_proj(f, *decoded)
+    _check_batch(f, pts, f"G{deg} batch")
     return C.point_to_rows(pts)
 
 
 def g1_batch_from_bytes(raw: bytes, n: int, device) -> torch.Tensor:
-    if len(raw) != 64 * n:
-        raise SerdeError("truncated G1 point array")
-    arr = np.frombuffer(raw, dtype=np.uint8).reshape(n, 64)
-    x = be_bytes_to_limbs(arr[:, :32])
-    y = be_bytes_to_limbs(arr[:, 32:])
-    inf = ~np.logical_or(x.any(axis=-1), y.any(axis=-1))
-    if _any_coord_ge_q(arr[~inf].reshape(-1, 32)):
-        raise SerdeError("G1 coordinate out of range")
-    return _batch_from_limbs(1, x, y, inf, "G1 batch", device)
+    return _batch_check(1, _batch_decode(1, raw, n, device))
 
 
 def g2_batch_from_bytes(raw: bytes, n: int, device) -> torch.Tensor:
-    if len(raw) != 128 * n:
-        raise SerdeError("truncated G2 point array")
-    arr = np.frombuffer(raw, dtype=np.uint8).reshape(n, 128)
-    x = be_bytes_to_limbs(arr[:, :64].reshape(n, 2, 32))
-    y = be_bytes_to_limbs(arr[:, 64:].reshape(n, 2, 32))
-    inf = ~np.logical_or(x.any(axis=(-1, -2)), y.any(axis=(-1, -2)))
-    if _any_coord_ge_q(arr[~inf].reshape(-1, 32)):
-        raise SerdeError("G2 coordinate out of range")
-    return _batch_from_limbs(2, x, y, inf, "G2 batch", device)
+    return _batch_check(2, _batch_decode(2, raw, n, device))
 
 
 # -- host CurvePoint <-> bytes (single points) ------------------------------
@@ -308,30 +308,36 @@ def pk_dims(raw: bytes) -> tuple[int, int, int, int]:
 
 def pk_from_bytes(raw: bytes, device=None) -> tuple[ProvingKey, int]:
     """Parse and validate a proving key; its tables go to `device`
-    (None: the card, default_device())."""
+    (None: the card, default_device()).  Spans serde.pk_decode (each
+    table's bytes to limbs on the host, and the send) and serde.pk_check
+    (the five single points' parse and checks on the host, then each
+    table's to_mont and on-curve check on the device); counters
+    serde.pk_points (every point, G1 and G2) and serde.pk_bytes, once an
+    import."""
     num_payloads, num_vars, num_primary, m = pk_dims(raw)
     n_aux = num_vars - num_primary - 1
     if num_primary >= num_vars or m < 1 or n_aux < 0:
         raise SerdeError("bad pk dimensions")
-    expect = (
-        20 + 3 * 64 + 2 * 128
-        + 64 * num_vars * 2 + 128 * num_vars
-        + 64 * (m - 1) + 64 * n_aux
-    )
-    if len(raw) != expect:
+    tables = ((1, num_vars), (1, num_vars), (2, num_vars), (1, m - 1), (1, n_aux))
+    singles = 20 + 3 * 64 + 2 * 128
+    if len(raw) != singles + sum(64 * deg * n for deg, n in tables):
         raise SerdeError("bad pk length")
     device = resolve_device(device)
-    o = 20
-    alpha = g1_point_from_bytes(raw[o : o + 64]); o += 64
-    beta1 = g1_point_from_bytes(raw[o : o + 64]); o += 64
-    delta1 = g1_point_from_bytes(raw[o : o + 64]); o += 64
-    beta2 = g2_point_from_bytes(raw[o : o + 128]); o += 128
-    delta2 = g2_point_from_bytes(raw[o : o + 128]); o += 128
-    a = g1_batch_from_bytes(raw[o : o + 64 * num_vars], num_vars, device); o += 64 * num_vars
-    b1 = g1_batch_from_bytes(raw[o : o + 64 * num_vars], num_vars, device); o += 64 * num_vars
-    b2 = g2_batch_from_bytes(raw[o : o + 128 * num_vars], num_vars, device); o += 128 * num_vars
-    h = g1_batch_from_bytes(raw[o : o + 64 * (m - 1)], m - 1, device); o += 64 * (m - 1)
-    l = g1_batch_from_bytes(raw[o : o + 64 * n_aux], n_aux, device); o += 64 * n_aux
+    with span("serde.pk_decode"):
+        decoded, o = [], singles
+        for deg, n in tables:
+            decoded.append(_batch_decode(deg, raw[o : o + 64 * deg * n], n, device))
+            o += 64 * deg * n
+    with span("serde.pk_check"):
+        o = 20
+        alpha = g1_point_from_bytes(raw[o : o + 64]); o += 64
+        beta1 = g1_point_from_bytes(raw[o : o + 64]); o += 64
+        delta1 = g1_point_from_bytes(raw[o : o + 64]); o += 64
+        beta2 = g2_point_from_bytes(raw[o : o + 128]); o += 128
+        delta2 = g2_point_from_bytes(raw[o : o + 128]); o += 128
+        a, b1, b2, h, l = (_batch_check(deg, d) for (deg, _), d in zip(tables, decoded))
+    count("serde.pk_points", 5 + sum(n for _, n in tables))
+    count("serde.pk_bytes", len(raw))
     pk = ProvingKey(
         num_vars=num_vars, num_primary=num_primary, m=m,
         alpha_g1=alpha, beta_g1=beta1, delta_g1=delta1,

@@ -41,7 +41,7 @@ import numpy as np
 
 from ..ff.params import FR_CAPACITY, R
 from ..r1cs.system import LC, WitnessPlan, WitnessVec, bit_operand
-from ..utils.profiling import count
+from ..utils.profiling import count, span
 from .circuit import ops_buffer, refs_buffer
 
 _INPUT_BYTES = (48, 64, 64)     # a payload's preimage, refs and ops buffers
@@ -49,12 +49,14 @@ _BUILD = threading.Lock()
 
 
 def witness_program(circuit) -> WitnessProgram:
-    """The circuit's program: built at the first call, then kept on the
-    circuit, so holders that share a circuit share it (read-only)."""
+    """The circuit's program: built at the first call (span
+    claims.witness_program), then kept on the circuit, so holders that
+    share a circuit share it (read-only)."""
     with _BUILD:
         program = getattr(circuit, "_witness_program", None)
         if program is None:
-            program = circuit._witness_program = WitnessProgram(circuit)
+            with span("claims.witness_program"):
+                program = circuit._witness_program = WitnessProgram(circuit)
     return program
 
 

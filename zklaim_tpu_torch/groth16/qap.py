@@ -87,8 +87,11 @@ class QAP:
 
     @classmethod
     def for_cs(cls, cs, device) -> "QAP":
-        coo = with_consistency_rows(cs.to_coo(), cs.num_constraints, cs.num_primary)
-        return cls(coo, cs.num_vars, cs.num_primary, cs.num_constraints, device, cs)
+        """The QAP of a ConstraintSystem (span groth16.qap): its COO with
+        the consistency rows, the coefficients in Montgomery form, sent."""
+        with span("groth16.qap"):
+            coo = with_consistency_rows(cs.to_coo(), cs.num_constraints, cs.num_primary)
+            return cls(coo, cs.num_vars, cs.num_primary, cs.num_constraints, device, cs)
 
     # -- instance map (host, setup-time) ----------------------------------
 
